@@ -1,0 +1,196 @@
+"""CLIP text + vision encoders (port of photoverse_tpu/models/clip.py).
+
+Pre-LN transformer blocks with quick_gelu, as in OpenAI CLIP. Module
+names follow the transformers CLIPTextModel / CLIPVisionModel state dicts
+(without the `text_model.` / `vision_model.` prefix), which
+`convert_clip_text` / `convert_clip_vision` read.
+
+  - The text encoder splices the concept embeddings in at the placeholder
+    (ops/injection.py), applies a causal mask and pools at the EOT token
+    (the highest token id of each row).
+  - The vision encoder returns its last hidden state plus the hidden
+    states listed in `collect_layers`, in HF hidden_states indexing
+    (0 = embedding output after pre-LN, i = output of encoder layer i).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from photoverse_tpu_torch.ops.injection import inject_concept_embeddings
+
+__all__ = ["CLIPTextConfig", "CLIPVisionConfig", "CLIPTextEncoder", "CLIPVisionEncoder", "quick_gelu"]
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPTextConfig:
+    vocab_size: int = 49408
+    hidden_size: int = 768
+    num_layers: int = 12
+    num_heads: int = 12
+    intermediate_size: int = 3072
+    max_position_embeddings: int = 77
+    layer_norm_eps: float = 1e-5
+
+
+@dataclasses.dataclass(frozen=True)
+class CLIPVisionConfig:
+    hidden_size: int = 1024
+    num_layers: int = 24
+    num_heads: int = 16
+    intermediate_size: int = 4096
+    image_size: int = 224
+    patch_size: int = 14
+    num_channels: int = 3
+    layer_norm_eps: float = 1e-5
+
+    @property
+    def seq_len(self) -> int:
+        return (self.image_size // self.patch_size) ** 2 + 1
+
+
+def quick_gelu(x: torch.Tensor) -> torch.Tensor:
+    return x * torch.sigmoid(1.702 * x)
+
+
+class _SelfAttn(nn.Module):
+    def __init__(self, dim: int, heads: int):
+        super().__init__()
+        self.heads = heads
+        self.q_proj = nn.Linear(dim, dim)
+        self.k_proj = nn.Linear(dim, dim)
+        self.v_proj = nn.Linear(dim, dim)
+        self.out_proj = nn.Linear(dim, dim)
+
+    def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
+        B, S, D = x.shape
+        hd = D // self.heads
+        q = self.q_proj(x).reshape(B, S, self.heads, hd)
+        k = self.k_proj(x).reshape(B, S, self.heads, hd)
+        v = self.v_proj(x).reshape(B, S, self.heads, hd)
+        scores = torch.einsum("bqhd,bkhd->bhqk", q.float(), k.float()) * (hd**-0.5)
+        if mask is not None:
+            scores = scores + mask
+        probs = torch.softmax(scores, dim=-1).to(x.dtype)
+        ctx = torch.einsum("bhqk,bkhd->bqhd", probs.float(), v.float()).to(x.dtype)
+        return self.out_proj(ctx.reshape(B, S, D))
+
+
+class _MLP(nn.Module):
+    def __init__(self, dim: int, hidden: int):
+        super().__init__()
+        self.fc1 = nn.Linear(dim, hidden)
+        self.fc2 = nn.Linear(hidden, dim)
+
+    def forward(self, x):
+        return self.fc2(quick_gelu(self.fc1(x)))
+
+
+class _CLIPLayer(nn.Module):
+    """x += attn(ln1(x)); x += mlp(ln2(x))."""
+
+    def __init__(self, dim: int, heads: int, hidden: int, eps: float):
+        super().__init__()
+        self.layer_norm1 = nn.LayerNorm(dim, eps=eps)
+        self.self_attn = _SelfAttn(dim, heads)
+        self.layer_norm2 = nn.LayerNorm(dim, eps=eps)
+        self.mlp = _MLP(dim, hidden)
+
+    def forward(self, x, mask=None):
+        x = x + self.self_attn(self.layer_norm1(x), mask)
+        return x + self.mlp(self.layer_norm2(x))
+
+
+class _Encoder(nn.Module):
+    def __init__(self, n: int, dim: int, heads: int, hidden: int, eps: float):
+        super().__init__()
+        self.layers = nn.ModuleList(_CLIPLayer(dim, heads, hidden, eps) for _ in range(n))
+
+
+class _TextEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPTextConfig):
+        super().__init__()
+        self.token_embedding = nn.Embedding(cfg.vocab_size, cfg.hidden_size)
+        self.position_embedding = nn.Embedding(cfg.max_position_embeddings, cfg.hidden_size)
+
+
+class CLIPTextEncoder(nn.Module):
+    """CLIP text transformer with concept-token injection.
+    Returns (last_hidden_state, pooled_output)."""
+
+    def __init__(self, config: CLIPTextConfig = CLIPTextConfig()):
+        super().__init__()
+        self.config = c = config
+        self.embeddings = _TextEmbeddings(c)
+        self.encoder = _Encoder(c.num_layers, c.hidden_size, c.num_heads, c.intermediate_size, c.layer_norm_eps)
+        self.final_layer_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(
+        self,
+        input_ids: torch.Tensor,  # (B, S) int
+        concept_embeds: Optional[torch.Tensor] = None,  # (B, K, D)
+        placeholder_idx: Optional[torch.Tensor] = None,  # (B,)
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        B, S = input_ids.shape
+        x = self.embeddings.token_embedding(input_ids)
+        if concept_embeds is not None:
+            if placeholder_idx is None:
+                raise ValueError("placeholder_idx required with concept_embeds")
+            x = inject_concept_embeddings(x, concept_embeds, placeholder_idx)
+        x = x + self.embeddings.position_embedding.weight[None, :S]
+        causal = torch.full((S, S), torch.finfo(torch.float32).min, device=x.device).triu(1)
+        for layer in self.encoder.layers:
+            x = layer(x, causal)
+        x = self.final_layer_norm(x)
+        eot = input_ids.argmax(dim=-1)
+        return x, x[torch.arange(B, device=x.device), eot]
+
+
+class _VisionEmbeddings(nn.Module):
+    def __init__(self, cfg: CLIPVisionConfig):
+        super().__init__()
+        self.class_embedding = nn.Parameter(torch.zeros(cfg.hidden_size))
+        self.patch_embedding = nn.Conv2d(
+            cfg.num_channels, cfg.hidden_size, cfg.patch_size, stride=cfg.patch_size, bias=False
+        )
+        self.position_embedding = nn.Embedding(cfg.seq_len, cfg.hidden_size)
+
+
+class CLIPVisionEncoder(nn.Module):
+    """CLIP ViT returning (last_hidden_state, hidden states of `collect_layers`)."""
+
+    def __init__(self, config: CLIPVisionConfig = CLIPVisionConfig()):
+        super().__init__()
+        self.config = c = config
+        self.embeddings = _VisionEmbeddings(c)
+        self.pre_layrnorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        self.encoder = _Encoder(c.num_layers, c.hidden_size, c.num_heads, c.intermediate_size, c.layer_norm_eps)
+        # applies only to the pooled CLS output, which the pipeline does not
+        # use; kept so the parameter set matches the real checkpoint
+        self.post_layernorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+
+    def forward(
+        self, pixel_values: torch.Tensor, collect_layers: Tuple[int, ...] = ()
+    ) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+        """pixel_values (B, H, W, 3) NHWC."""
+        c = self.config
+        if pixel_values.shape[-1] != c.num_channels:
+            raise ValueError(f"expected NHWC input with {c.num_channels} channels, got {tuple(pixel_values.shape)}")
+        B = pixel_values.shape[0]
+        emb = self.embeddings
+        w = emb.patch_embedding.weight
+        patches = emb.patch_embedding(pixel_values.permute(0, 3, 1, 2).to(w.dtype))
+        patches = patches.flatten(2).transpose(1, 2)  # (B, h*w, D)
+        cls = emb.class_embedding.to(patches.dtype).expand(B, 1, -1)
+        x = torch.cat([cls, patches], dim=1) + emb.position_embedding.weight[None]
+        x = self.pre_layrnorm(x)
+        collected = {0: x} if 0 in collect_layers else {}
+        for i, layer in enumerate(self.encoder.layers):
+            x = layer(x)
+            if i + 1 in collect_layers:
+                collected[i + 1] = x
+        return x, tuple(collected[i] for i in collect_layers)

@@ -1,0 +1,324 @@
+"""SD-1.5 UNet with dual-context (text + identity) cross-attention, eval
+path. Port of photoverse_tpu/models/unet.py.
+
+Module names follow the diffusers UNet2DConditionModel state dict with the
+PhotoVerse processor's `attn2.processor.to_{k,v}_ip.0`, which
+`convert_unet` reads. The public forward keeps the JAX package's NHWC
+layout; convolutions run NCHW inside.
+
+Kernel routes (the build flags of the serving configuration):
+  - use_flash_attention: self-attention at S >= flash_min_seq goes through
+    ops.flash_sdpa (the 64^2 and 32^2 levels of SD-1.5);
+  - fused_blocks: a layer given a fused bundle runs its LN2 + dual-context
+    cross-attention + LN3 + GEGLU tail through ops.fused_block.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import itertools
+import math
+from typing import Optional, Sequence, Tuple
+
+import torch
+from torch import nn
+import torch.nn.functional as F
+
+from photoverse_tpu_torch.models.layers import GroupNorm, Group, LayerNorm, ResnetBlock, Sampler, proj
+from photoverse_tpu_torch.ops.attention import dual_context_attention, sdpa
+from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa
+from photoverse_tpu_torch.ops.fused_block import fused_cross_ff
+
+__all__ = ["UNetConfig", "UNet2DCondition", "timestep_embedding"]
+
+
+@dataclasses.dataclass(frozen=True)
+class UNetConfig:
+    in_channels: int = 4
+    out_channels: int = 4
+    block_out_channels: Tuple[int, ...] = (320, 640, 1280, 1280)
+    layers_per_block: int = 2
+    cross_attention_dim: int = 768
+    num_heads: int = 8
+    norm_num_groups: int = 32
+    lora_rank: int = 0  # 0 disables LoRA
+    lora_alpha: float = 1.0
+    use_flash_attention: bool = False
+    flash_min_seq: int = 1024
+    fast_attention_scores: bool = False
+    fast_norms: bool = False
+    fused_blocks: bool = False
+    fused_block_max_channels: int = 320
+
+    @property
+    def time_embed_dim(self) -> int:
+        return self.block_out_channels[0] * 4
+
+
+def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
+    """Sinusoidal embedding, cos first (flip_sin_to_cos=True, freq_shift=0)."""
+    half = dim // 2
+    freqs = torch.exp(
+        -math.log(max_period) * torch.arange(half, dtype=torch.float32, device=timesteps.device) / half
+    )
+    args = timesteps.float()[:, None] * freqs[None, :]
+    return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+class SelfAttention(nn.Module):
+    """attn1; long sequences take the flash kernel when enabled."""
+
+    def __init__(self, ch: int, heads: int, cfg: UNetConfig):
+        super().__init__()
+        self.heads = heads
+        self.cfg = cfg
+        self.to_q = nn.Linear(ch, ch, bias=False)
+        self.to_k = nn.Linear(ch, ch, bias=False)
+        self.to_v = nn.Linear(ch, ch, bias=False)
+        self.to_out = nn.ModuleList([nn.Linear(ch, ch)])
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        B, S, C = x.shape
+        H = self.heads
+        q = self.to_q(x).reshape(B, S, H, C // H)
+        k = self.to_k(x).reshape(B, S, H, C // H)
+        v = self.to_v(x).reshape(B, S, H, C // H)
+        cfg = self.cfg
+        if cfg.use_flash_attention and S >= cfg.flash_min_seq:
+            out = flash_sdpa(q, k, v)
+        else:
+            out = sdpa(q, k, v, fast_scores=cfg.fast_attention_scores)
+        return self.to_out[0](out.reshape(B, S, C))
+
+
+class _IPProcessor(nn.Module):
+    def __init__(self, cross_dim: int, ch: int):
+        super().__init__()
+        self.to_k_ip = nn.ModuleList([nn.Linear(cross_dim, ch, bias=False)])
+        self.to_v_ip = nn.ModuleList([nn.Linear(cross_dim, ch, bias=False)])
+
+
+class DualCrossAttention(nn.Module):
+    """attn2: text cross-attention + identity cross-attention, eval fusion
+    (sum). Returns (out, v_ip_norm (B, H, K))."""
+
+    def __init__(self, ch: int, heads: int, cfg: UNetConfig):
+        super().__init__()
+        self.heads = heads
+        cd, r, a = cfg.cross_attention_dim, cfg.lora_rank, cfg.lora_alpha
+        self.to_q = proj(ch, ch, r, a)
+        self.to_k = proj(cd, ch, r, a)
+        self.to_v = proj(cd, ch, r, a)
+        self.to_out = nn.ModuleList([nn.Linear(ch, ch)])
+        self.processor = _IPProcessor(cd, ch)
+
+    def context_kv(self, text_ctx: torch.Tensor, id_ctx: torch.Tensor):
+        """(k, v, k_ip, v_ip), each (B, n, H, d): constant over a denoise
+        trajectory, so the engine computes it once per call."""
+        B = text_ctx.shape[0]
+        H = self.heads
+        split = lambda t: t.reshape(B, -1, H, t.shape[-1] // H)  # noqa: E731
+        p = self.processor
+        return (split(self.to_k(text_ctx)), split(self.to_v(text_ctx)),
+                split(p.to_k_ip[0](id_ctx)), split(p.to_v_ip[0](id_ctx)))
+
+    def forward(self, x, text_ctx, id_ctx, ctx_kv=None):
+        B, S, C = x.shape
+        q = self.to_q(x).reshape(B, S, self.heads, C // self.heads)
+        if ctx_kv is None:
+            ctx_kv = self.context_kv(text_ctx, id_ctx)
+        k, v, k_ip, v_ip = (t.to(x.dtype) for t in ctx_kv)
+        fused, v_ip_norm = dual_context_attention(q, k, v, k_ip, v_ip)
+        return self.to_out[0](fused.reshape(B, S, C)), v_ip_norm
+
+
+class _GEGLUProj(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        self.proj = nn.Linear(ch, 8 * ch)
+
+    def forward(self, x):
+        a, gate = self.proj(x).chunk(2, dim=-1)
+        return a * F.gelu(gate)
+
+
+class _FeedForward(nn.Module):
+    def __init__(self, ch: int):
+        super().__init__()
+        # diffusers keys ff.net.0.proj / ff.net.2 (index 1 is a dropout)
+        self.net = nn.ModuleList([_GEGLUProj(ch), nn.Identity(), nn.Linear(4 * ch, ch)])
+
+    def forward(self, x):
+        return self.net[2](self.net[0](x))
+
+
+class BasicTransformerBlock(nn.Module):
+    def __init__(self, ch: int, cfg: UNetConfig):
+        super().__init__()
+        nf = not cfg.fast_norms
+        self.heads = cfg.num_heads
+        self.norm1 = LayerNorm(ch, 1e-5, nf)
+        self.attn1 = SelfAttention(ch, cfg.num_heads, cfg)
+        self.norm2 = LayerNorm(ch, 1e-5, nf)
+        self.attn2 = DualCrossAttention(ch, cfg.num_heads, cfg)
+        self.norm3 = LayerNorm(ch, 1e-5, nf)
+        self.ff = _FeedForward(ch)
+
+    def forward(self, h, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None):
+        h = h + self.attn1(self.norm1(h))
+        if fused_bundle is not None:
+            # the whole tail (LN2 + dual-cross + LN3 + GEGLU + residuals)
+            h = fused_cross_ff(h.contiguous(), fused_bundle, self.heads)
+            v_ip = fused_bundle["ctx"][3]  # (B, H, K, d)
+            return h, v_ip.float().square().sum(dim=-1).sqrt()
+        a2, v_ip_norm = self.attn2(self.norm2(h), text_ctx, id_ctx, ctx_kv)
+        h = h + a2
+        return h + self.ff(self.norm3(h)), v_ip_norm
+
+
+class Transformer2D(nn.Module):
+    """GN -> proj_in -> BasicTransformerBlock -> proj_out (+ residual)."""
+
+    def __init__(self, ch: int, cfg: UNetConfig):
+        super().__init__()
+        self.norm = GroupNorm(cfg.norm_num_groups, ch, 1e-6, not cfg.fast_norms)
+        self.proj_in = nn.Conv2d(ch, ch, 1)
+        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, cfg)])
+        self.proj_out = nn.Conv2d(ch, ch, 1)
+
+    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None):
+        B, C, Hh, Ww = x.shape
+        h = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(B, Hh * Ww, C)
+        h, vn = self.transformer_blocks[0](h, text_ctx, id_ctx, ctx_kv, fused_bundle)
+        h = h.reshape(B, Hh, Ww, C).permute(0, 3, 1, 2)
+        return self.proj_out(h) + x, vn
+
+
+class UNet2DCondition(nn.Module):
+    """forward(sample (B,H,W,4), timesteps (B,), text_ctx (B,St,cross),
+    id_ctx (B,K,cross)) -> (eps (B,H,W,4) f32, v_ip_norms (B, L*H*K))."""
+
+    def __init__(self, config: UNetConfig = UNetConfig()):
+        super().__init__()
+        self.config = cfg = config
+        ch = cfg.block_out_channels
+        n = len(ch)
+        tdim = cfg.time_embed_dim
+        G = cfg.norm_num_groups
+        nf = not cfg.fast_norms
+
+        def res(i, o):
+            return ResnetBlock(i, o, tdim, G, 1e-5, nf)
+
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.time_embedding = Group()
+        self.time_embedding.linear_1 = nn.Linear(ch[0], tdim)
+        self.time_embedding.linear_2 = nn.Linear(tdim, tdim)
+
+        self.down_blocks = nn.ModuleList()
+        in_c = ch[0]
+        for i, c in enumerate(ch):
+            blk = Group()
+            blk.resnets = nn.ModuleList()
+            blk.attentions = nn.ModuleList() if i < n - 1 else None
+            for j in range(cfg.layers_per_block):
+                blk.resnets.append(res(in_c if j == 0 else c, c))
+                if i < n - 1:
+                    blk.attentions.append(Transformer2D(c, cfg))
+            if i < n - 1:
+                blk.downsamplers = nn.ModuleList([Sampler(nn.Conv2d(c, c, 3, stride=2, padding=1))])
+            in_c = c
+            self.down_blocks.append(blk)
+
+        self.mid_block = Group()
+        self.mid_block.resnets = nn.ModuleList([res(ch[-1], ch[-1]), res(ch[-1], ch[-1])])
+        self.mid_block.attentions = nn.ModuleList([Transformer2D(ch[-1], cfg)])
+
+        rev = list(reversed(ch))
+        self.up_blocks = nn.ModuleList()
+        prev = ch[-1]
+        for i, c in enumerate(rev):
+            blk = Group()
+            blk.resnets = nn.ModuleList()
+            blk.attentions = nn.ModuleList() if i > 0 else None
+            skip_last = rev[min(i + 1, n - 1)]
+            for j in range(cfg.layers_per_block + 1):
+                skip_c = skip_last if j == cfg.layers_per_block else c
+                blk.resnets.append(res((prev if j == 0 else c) + skip_c, c))
+                if i > 0:
+                    blk.attentions.append(Transformer2D(c, cfg))
+            if i < n - 1:
+                blk.upsamplers = nn.ModuleList([Sampler(nn.Conv2d(c, c, 3, padding=1))])
+            prev = c
+            self.up_blocks.append(blk)
+
+        self.conv_norm_out = GroupNorm(G, ch[0], 1e-5, nf)
+        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+
+    def cross_attentions(self):
+        """The DualCrossAttention-bearing blocks in call order."""
+        out = [a for blk in self.down_blocks if blk.attentions is not None for a in blk.attentions]
+        out.append(self.mid_block.attentions[0])
+        out += [a for blk in self.up_blocks if blk.attentions is not None for a in blk.attentions]
+        return [t.transformer_blocks[0] for t in out]
+
+    def forward(
+        self,
+        sample: torch.Tensor,
+        timesteps: torch.Tensor,
+        text_ctx: torch.Tensor,
+        id_ctx: torch.Tensor,
+        ctx_kv: Optional[Sequence] = None,  # per cross layer (k, v, k_ip, v_ip)
+        fused_bundles: Optional[Sequence] = None,  # per cross layer bundle or None
+    ) -> Tuple[torch.Tensor, torch.Tensor]:
+        dtype = self.conv_in.weight.dtype
+        B = sample.shape[0]
+        timesteps = torch.as_tensor(timesteps, device=sample.device)
+        if timesteps.dim() == 0:
+            timesteps = timesteps.expand(B)
+        layer = itertools.count()  # cross-attention layers in call order
+
+        def cross(attn, x):
+            i = next(layer)
+            return attn(
+                x, text_ctx, id_ctx,
+                None if ctx_kv is None else ctx_kv[i],
+                None if fused_bundles is None else fused_bundles[i],
+            )
+
+        temb = timestep_embedding(timesteps, self.config.block_out_channels[0]).to(dtype)
+        temb = self.time_embedding.linear_2(F.silu(self.time_embedding.linear_1(temb)))
+        text_ctx = text_ctx.to(dtype)
+        id_ctx = id_ctx.to(dtype)
+
+        norms = []
+        x = self.conv_in(sample.permute(0, 3, 1, 2).to(dtype))
+        skips = [x]
+        for blk in self.down_blocks:
+            for j, r in enumerate(blk.resnets):
+                x = r(x, temb)
+                if blk.attentions is not None:
+                    x, vn = cross(blk.attentions[j], x)
+                    norms.append(vn)
+                skips.append(x)
+            if hasattr(blk, "downsamplers"):
+                x = blk.downsamplers[0].conv(x)
+                skips.append(x)
+
+        x = self.mid_block.resnets[0](x, temb)
+        x, vn = cross(self.mid_block.attentions[0], x)
+        norms.append(vn)
+        x = self.mid_block.resnets[1](x, temb)
+
+        for blk in self.up_blocks:
+            for j, r in enumerate(blk.resnets):
+                x = r(torch.cat([x, skips.pop()], dim=1), temb)
+                if blk.attentions is not None:
+                    x, vn = cross(blk.attentions[j], x)
+                    norms.append(vn)
+            if hasattr(blk, "upsamplers"):
+                x = blk.upsamplers[0].conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+
+        eps = self.conv_out(F.silu(self.conv_norm_out(x)))
+        v_ip_norms = torch.stack(norms, dim=1).reshape(B, -1)
+        return eps.float().permute(0, 2, 3, 1), v_ip_norms

@@ -1,0 +1,158 @@
+"""Build-on-first-use for the hand-written CUDA kernels in `csrc/`.
+
+All `csrc/*.cu` files compile with nvcc into one shared library with a
+plain C interface, loaded with ctypes (no PyTorch headers, so the build
+takes seconds). The library lands in `photoverse_tpu_torch/_build/`, which
+git ignores; it is rebuilt when any source is newer. A missing nvcc or a
+failed compile raises `KernelBuildError`: there is no fallback.
+
+Every C entry point returns `cudaGetLastError()` after its launch;
+`check()` turns a non-zero code into an exception. `launch_counts` counts
+the launches of each kernel, so a run can show which kernels it went
+through.
+"""
+
+from __future__ import annotations
+
+import collections
+import ctypes
+import glob
+import os
+import shutil
+import subprocess
+import threading
+
+__all__ = [
+    "KernelBuildError",
+    "KernelLaunchError",
+    "build_library",
+    "load_library",
+    "check",
+    "launch_counts",
+    "reset_launch_counts",
+    "BUILD_DIR",
+    "CSRC_DIR",
+]
+
+_PKG = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+CSRC_DIR = os.path.join(_PKG, "csrc")
+BUILD_DIR = os.path.join(_PKG, "_build")
+LIB_NAME = "libphotoverse_kernels.so"
+# searched after $CUDA_HOME/bin and $PATH
+NVCC_FALLBACKS = ("/usr/local/cuda/bin/nvcc",)
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+P = ctypes.c_void_p
+I = ctypes.c_int
+L = ctypes.c_longlong
+# C signatures of the entry points in csrc/ (all return cudaError_t as int)
+SIGNATURES = {
+    # q, k, v, out, B, Sq, Skv, H, D, strides (b, s, h) of q, k, v, stream
+    "pv_flash_fwd": [P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, L, L, L, P],
+    # h, out, kT, vT, kI, vI, ln2g, ln2b, wq, wout, bout, ln3g, ln3b,
+    # wpa, wpg, bpa, bpg, wo, bo, B, S, C, H, St, K, F, stream
+    "pv_fused_cross_ff": [P] * 19 + [I] * 7 + [P],
+}
+# const char* pv_error_string(int code)
+ERROR_STRING = "pv_error_string"
+
+
+class KernelBuildError(RuntimeError):
+    pass
+
+
+class KernelLaunchError(RuntimeError):
+    pass
+
+
+launch_counts: collections.Counter = collections.Counter()
+
+
+def reset_launch_counts() -> None:
+    launch_counts.clear()
+
+
+def _find_nvcc() -> str | None:
+    cands = []
+    if os.environ.get("CUDA_HOME"):
+        cands.append(os.path.join(os.environ["CUDA_HOME"], "bin", "nvcc"))
+    which = shutil.which("nvcc")
+    if which:
+        cands.append(which)
+    cands.extend(NVCC_FALLBACKS)
+    for c in cands:
+        if os.path.isfile(c) and os.access(c, os.X_OK):
+            return c
+    return None
+
+
+def build_library(build_dir: str = BUILD_DIR) -> tuple[str, str]:
+    """Compile csrc/*.cu into build_dir if stale; returns (.so path,
+    compiler output). Raises KernelBuildError with nvcc's output."""
+    sources = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    headers = glob.glob(os.path.join(CSRC_DIR, "*.cuh"))
+    if not sources:
+        raise KernelBuildError(f"no CUDA sources under {CSRC_DIR}")
+    so = os.path.join(build_dir, LIB_NAME)
+    newest = max(os.path.getmtime(p) for p in sources + headers)
+    if os.path.exists(so) and os.path.getmtime(so) >= newest:
+        return so, ""
+    nvcc = _find_nvcc()
+    if nvcc is None:
+        raise KernelBuildError(
+            "nvcc not found (looked in $CUDA_HOME/bin, $PATH and "
+            f"{', '.join(NVCC_FALLBACKS)}); the CUDA kernels need the CUDA "
+            "toolkit to build"
+        )
+    os.makedirs(build_dir, exist_ok=True)
+    # unique name + rename: concurrent builders never load a partial file
+    tmp = f"{so}.{os.getpid()}.tmp"
+    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources]
+    try:
+        res = subprocess.run(cmd, check=True, capture_output=True, text=True)
+        os.replace(tmp, so)
+    except subprocess.CalledProcessError as e:
+        if os.path.exists(tmp):
+            os.unlink(tmp)
+        raise KernelBuildError(
+            f"nvcc failed ({' '.join(cmd)}):\n{e.stdout}\n{e.stderr}"
+        ) from e
+    return so, res.stdout + res.stderr
+
+
+_lib = None
+_lib_lock = threading.Lock()
+
+
+def load_library() -> ctypes.CDLL:
+    """Build (if needed) and load the kernel library, with argtypes set."""
+    global _lib
+    with _lib_lock:
+        if _lib is None:
+            so, _ = build_library()
+            lib = ctypes.CDLL(so)
+            for name, args in SIGNATURES.items():
+                fn = getattr(lib, name)
+                fn.argtypes = args
+                fn.restype = ctypes.c_int
+            getattr(lib, ERROR_STRING).argtypes = [I]
+            getattr(lib, ERROR_STRING).restype = ctypes.c_char_p
+            _lib = lib
+    return _lib
+
+
+def check(code: int, name: str) -> None:
+    """Raise if a C entry point reported a CUDA error."""
+    if code != 0:
+        msg = getattr(load_library(), ERROR_STRING)(code).decode()
+        raise KernelLaunchError(f"{name}: CUDA error {code} ({msg})")
+
+
+def stream_ptr(device) -> int:
+    import torch
+
+    return torch.cuda.current_stream(device).cuda_stream

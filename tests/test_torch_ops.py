@@ -1,0 +1,156 @@
+"""photoverse_tpu_torch.ops against photoverse_tpu.ops on the CPU (f32).
+
+The same numpy inputs go through both packages. JAX functions that reach a
+Pallas kernel run in interpret mode; the port's kernel wrappers take their
+plain PyTorch versions because the tensors lie on the CPU.
+"""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+from jax.experimental.pallas import tpu as pltpu
+
+from photoverse_tpu.ops import attention as jattn
+from photoverse_tpu.ops import flash_sdpa as jflash
+from photoverse_tpu.ops import fused_block as jfused
+from photoverse_tpu.ops.injection import inject_concept_embeddings as jinject
+from photoverse_tpu_torch.ops import _build
+from photoverse_tpu_torch.ops import attention as tattn
+from photoverse_tpu_torch.ops import flash_sdpa as tflash
+from photoverse_tpu_torch.ops import fused_block as tfused
+from photoverse_tpu_torch.ops.injection import inject_concept_embeddings as tinject
+
+T = torch.from_numpy
+
+
+def _rand(rng, *shape, scale=1.0):
+    return (rng.randn(*shape) * scale).astype(np.float32)
+
+
+def test_sdpa_matches_jax():
+    # rtol 1e-5 / atol 1e-6: both sides are f32 einsum + softmax
+    rng = np.random.RandomState(0)
+    q, k, v = _rand(rng, 2, 9, 2, 8), _rand(rng, 2, 7, 2, 8), _rand(rng, 2, 7, 2, 8)
+    want = np.asarray(jattn.sdpa(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v)))
+    got = tattn.sdpa(T(q), T(k), T(v)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def test_dual_context_attention_matches_jax():
+    # rtol 1e-5 / atol 1e-6 on the fused output and the v_ip norms
+    rng = np.random.RandomState(1)
+    q = _rand(rng, 2, 16, 2, 8)
+    kt, vt = _rand(rng, 2, 7, 2, 8), _rand(rng, 2, 7, 2, 8)
+    ki, vi = _rand(rng, 2, 3, 2, 8), _rand(rng, 2, 3, 2, 8)
+    want, want_n = jattn.dual_context_attention(*map(jnp.asarray, (q, kt, vt, ki, vi)))
+    got, got_n = tattn.dual_context_attention(*map(T, (q, kt, vt, ki, vi)))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5, atol=1e-6)
+    np.testing.assert_allclose(got_n.numpy(), np.asarray(want_n), rtol=1e-5, atol=1e-6)
+    assert got_n.shape == (2, 2, 3)
+
+
+def test_fuse_outputs_train_rules_match_jax():
+    rng = np.random.RandomState(2)
+    a, b = _rand(rng, 3, 4), _rand(rng, 3, 4)
+    for u in (0.1, 0.5, 0.9):
+        want = jattn.fuse_outputs(jnp.asarray(a), jnp.asarray(b), train=True, fusion_u=jnp.float32(u))
+        got = tattn.fuse_outputs(T(a), T(b), train=True, fusion_u=torch.tensor(u))
+        np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6)
+
+
+@pytest.mark.parametrize("pidx", [[0, 0], [3, 5], [0, 9]])
+def test_injection_matches_jax(pidx):
+    # exact splice (a gather): rtol 1e-5 / atol 1e-6; p=0 puts the concept first
+    rng = np.random.RandomState(3)
+    emb, concept = _rand(rng, 2, 12, 4), _rand(rng, 2, 3, 4)
+    p = np.asarray(pidx, np.int32)
+    want = np.asarray(jinject(jnp.asarray(emb), jnp.asarray(concept), jnp.asarray(p)))
+    got = tinject(T(emb), T(concept), T(p)).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+def _qkv(B, Sq, Skv, H, d, seed):
+    rng = np.random.RandomState(seed)
+    return (_rand(rng, B, Sq, H, d, scale=0.3), _rand(rng, B, Skv, H, d, scale=0.3),
+            _rand(rng, B, Skv, H, d, scale=0.3))
+
+
+@pytest.mark.parametrize("Sq,Skv,d", [(256, 256, 40), (256, 256, 80), (128, 256, 40)])
+def test_flash_sdpa_matches_jax(Sq, Skv, d):
+    # atol 1e-5: the Pallas kernel's online softmax (interpret mode, 64-row
+    # tiles) against the port's one-shot f32 softmax
+    q, k, v = _qkv(2, Sq, Skv, 2, d, seed=d + Sq)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jflash.flash_sdpa(*map(jnp.asarray, (q, k, v)), q_tile=64, k_tile=64))
+    got = tflash.flash_sdpa(T(q), T(k), T(v)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def test_flash_sdpa_stream_matches_jax():
+    # atol 1e-5; k_tile 64 streams four K/V blocks through the Pallas kernel
+    q, k, v = _qkv(1, 256, 256, 1, 64, seed=7)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jflash.flash_sdpa_stream(*map(jnp.asarray, (q, k, v)), q_tile=64, k_tile=64))
+    got = tflash.flash_sdpa_stream(T(q), T(k), T(v)).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-5)
+
+
+def _rand_bundle(rng, B, C, H, St, K):
+    d, F = C // H, 4 * C
+    r = lambda *s: _rand(rng, *s, scale=0.1)  # noqa: E731
+    weights = {
+        "ln2g": r(C), "ln2b": r(C), "wq": r(H, C, d), "wout": r(H, d, C), "bout": r(C),
+        "ln3g": r(C), "ln3b": r(C), "wpa": r(C, F), "wpg": r(C, F), "bpa": r(F), "bpg": r(F),
+        "wo": r(F, C), "bo": r(C),
+    }
+    ctx = tuple(r(B, n, H, d) * 3 for n in (St, St, K, K))  # (B, n, H, d) as the cache holds it
+    return weights, ctx
+
+
+@pytest.mark.parametrize("St,K", [(7, 1), (7, 5), (77, 1), (77, 5)])
+def test_fused_cross_ff_matches_jax(St, K):
+    # atol 1e-4 (as the JAX package's own kernel test). The JAX bundle pads
+    # the identity context to 8 tokens with a -1e9 bias; the port's does not.
+    rng = np.random.RandomState(St + K)
+    B, S, C, H = 2, 64, 32, 4
+    w, ctx = _rand_bundle(rng, B, C, H, St, K)
+    h = _rand(rng, B, S, C)
+    vec = {"ln2g", "ln2b", "bout", "ln3g", "ln3b", "bpa", "bpg", "bo"}
+    jb = {k: jnp.asarray(v.reshape(1, -1) if k in vec else v) for k, v in w.items()}
+    jb = jfused.attach_ctx(jb, tuple(map(jnp.asarray, ctx)), jnp.float32)
+    with pltpu.force_tpu_interpret_mode():
+        want = np.asarray(jfused.fused_cross_ff(jnp.asarray(h), jb, H, q_tile=32))
+    tb = tfused.attach_ctx({k: T(v) for k, v in w.items()}, tuple(map(T, ctx)), torch.float32)
+    got = tfused.fused_cross_ff(T(h), tb, H).numpy()
+    np.testing.assert_allclose(got, want, atol=1e-4)
+    assert tb["ctx"][2].shape == (B, H, K, C // H)
+
+
+def test_wrappers_count_no_launch_on_cpu():
+    _build.reset_launch_counts()
+    q, k, v = map(T, _qkv(1, 64, 64, 2, 40, seed=0))
+    tflash.flash_sdpa(q, k, v)
+    tflash.flash_sdpa_stream(q, k, v)
+    w, ctx = _rand_bundle(np.random.RandomState(0), 1, 16, 2, 7, 1)
+    tfused.fused_cross_ff(torch.zeros(1, 8, 16), tfused.attach_ctx(
+        {k: T(x) for k, x in w.items()}, tuple(map(T, ctx)), torch.float32), 2)
+    assert sum(_build.launch_counts.values()) == 0
+
+
+def test_kernel_build_without_nvcc_raises(monkeypatch, tmp_path):
+    monkeypatch.setenv("PATH", str(tmp_path))
+    monkeypatch.delenv("CUDA_HOME", raising=False)
+    monkeypatch.setattr(_build, "NVCC_FALLBACKS", (str(tmp_path / "nvcc"),))
+    with pytest.raises(_build.KernelBuildError, match="nvcc not found"):
+        _build.build_library(build_dir=str(tmp_path / "build"))
+    assert not (tmp_path / "build").exists()
+
+
+def test_wrappers_reject_devices_without_a_kernel():
+    # only CPU (plain version) and CUDA (kernel) tensors are taken
+    q = torch.zeros(1, 8, 1, 40, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tflash.flash_sdpa(q, q, q)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tfused.fused_cross_ff(torch.zeros(1, 8, 16, device="meta"), {}, 2)
