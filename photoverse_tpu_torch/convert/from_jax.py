@@ -22,7 +22,9 @@ __all__ = [
     "clip_vision_state_dict",
     "vae_state_dict",
     "unet_state_dict",
+    "arcface_state_dict",
     "load_jax_params",
+    "load_jax_arcface",
 ]
 
 StateDict = Dict[str, np.ndarray]
@@ -115,9 +117,8 @@ def _vae_attn(out: StateDict, prefix: str, p: Mapping) -> None:
 
 
 def vae_state_dict(tree: Mapping, block_out_channels, layers_per_block: int) -> StateDict:
-    """Whole AutoencoderKL tree (encoder included) -> diffusers keys; the
-    port's decode-half module takes the `decoder.*` and `post_quant_conv.*`
-    entries."""
+    """Whole AutoencoderKL tree -> diffusers keys (`encoder.*`,
+    `quant_conv`, `decoder.*`, `post_quant_conv`)."""
     n = len(block_out_channels)
     out: StateDict = {}
     for side, blocks, count in (("encoder", "down", layers_per_block),
@@ -196,6 +197,46 @@ def unet_state_dict(tree: Mapping, block_out_channels, layers_per_block: int) ->
         if i < n - 1:
             _conv(out, f"up_blocks.{i}.upsamplers.0.conv", tree[f"up_{i}_upsample"])
     return out
+
+
+def _bn(out: StateDict, prefix: str, p: Mapping) -> None:
+    out[prefix + ".weight"] = _a(p["scale"])
+    out[prefix + ".bias"] = _a(p["bias"])
+    out[prefix + ".running_mean"] = _a(p["mean"])
+    out[prefix + ".running_var"] = _a(p["var"])
+
+
+def arcface_state_dict(tree: Mapping, config) -> StateDict:
+    """ArcFaceResNet18 params -> the reference ResNetFace keys. The JAX fc5
+    reads the (H, W, C) flattening; the port's (and the reference's) the
+    (C, H, W) one, so fc5's columns are permuted back."""
+    out: StateDict = {"conv1.weight": _a(tree["conv1"]["kernel"]).transpose(3, 2, 0, 1),
+                      "prelu.weight": _a(tree["prelu"]["weight"])}
+    _bn(out, "bn1", tree["bn1"])
+    _bn(out, "bn4", tree["bn4"])
+    _bn(out, "bn5", tree["bn5"])
+    c, hw = config.channels[-1], config.input_size // 16
+    w = _a(tree["fc5"]["kernel"]).T  # (emb, hw * hw * c), (H, W, C) order
+    out["fc5.weight"] = np.ascontiguousarray(
+        w.reshape(-1, hw, hw, c).transpose(0, 3, 1, 2).reshape(w.shape[0], -1))
+    out["fc5.bias"] = _a(tree["fc5"]["bias"])
+    for si, blocks in enumerate(config.layers):
+        for bi in range(blocks):
+            p, prefix = tree[f"layer{si + 1}_{bi}"], f"layer{si + 1}.{bi}"
+            for k in ("bn0", "bn1", "bn2"):
+                _bn(out, f"{prefix}.{k}", p[k])
+            for k in ("conv1", "conv2"):
+                out[f"{prefix}.{k}.weight"] = _a(p[k]["kernel"]).transpose(3, 2, 0, 1)
+            out[f"{prefix}.prelu.weight"] = _a(p["prelu"]["weight"])
+            if "downsample_conv" in p:
+                out[f"{prefix}.downsample.0.weight"] = _a(p["downsample_conv"]["kernel"]).transpose(3, 2, 0, 1)
+                _bn(out, f"{prefix}.downsample.1", p["downsample_bn"])
+    return out
+
+
+def load_jax_arcface(model, tree) -> None:
+    """Copy a JAX ArcFaceResNet18 tree (numpy leaves) into the port's model."""
+    _load(model, arcface_state_dict(tree, model.config))
 
 
 def _load(module: torch.nn.Module, sd: StateDict) -> None:

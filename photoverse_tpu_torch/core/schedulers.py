@@ -1,5 +1,6 @@
-"""Diffusion schedules, main-path part: the SD-1.5 DDPM table and the
-DPM-Solver++(2M) sampler. Port of photoverse_tpu/core/schedulers.py.
+"""Diffusion schedules, main-path part: the SD-1.5 DDPM table (with the
+training forward process, `add_noise`) and the DPM-Solver++(2M) sampler.
+Port of photoverse_tpu/core/schedulers.py.
 
 All per-step solver quantities are host numpy scalars computed once, so a
 step is the static linear combination
@@ -84,6 +85,15 @@ class DDPMSchedule:
             steps_offset=steps_offset,
         )
 
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, timesteps: torch.Tensor) -> torch.Tensor:
+        """noisy = sqrt(abar_t) x0 + sqrt(1 - abar_t) eps, per batch row."""
+        t = torch.as_tensor(timesteps, device=sample.device).long()
+        abar = torch.as_tensor(self.alphas_cumprod, device=sample.device)
+        a = abar.sqrt().float()[t].to(sample.dtype)
+        s = (1.0 - abar).sqrt().float()[t].to(sample.dtype)
+        shape = a.shape + (1,) * (sample.dim() - a.dim())
+        return a.reshape(shape) * sample + s.reshape(shape) * noise
+
 
 @dataclasses.dataclass(frozen=True)
 class DPMSolverMultistep:
@@ -164,6 +174,12 @@ class DPMSolverMultistep:
     def advance(self, step: Dict[str, torch.Tensor], carry: tuple, eps: torch.Tensor) -> tuple:
         lat, m_prev = carry
         return self.step(step, lat, eps, m_prev)
+
+    def add_noise(self, sample: torch.Tensor, noise: torch.Tensor, step_index: int) -> torch.Tensor:
+        """Noise a clean sample to solver step `step_index` (0 = most noise)."""
+        sigma = float(self.sigmas[step_index])
+        alpha_t = 1.0 / np.sqrt(sigma**2 + 1.0)
+        return (alpha_t * sample + sigma * alpha_t * noise).to(sample.dtype)
 
     def step(self, step, latents, eps, m_prev) -> Tuple[torch.Tensor, torch.Tensor]:
         """One update given this step's slice of `step_inputs`; returns

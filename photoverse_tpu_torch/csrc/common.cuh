@@ -11,6 +11,11 @@ __device__ __forceinline__ float ld(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// Two neighbouring bf16 values as one 32-bit word (4-byte aligned).
+__device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
+  return *reinterpret_cast<const uint32_t*>(p);
+}
+
 // f32 -> tf32 operand, rounded to nearest (a bf16 value converts exactly).
 __device__ __forceinline__ uint32_t tf32(float x) {
   uint32_t r;

@@ -1,9 +1,18 @@
-// Flash-attention forward for Hopper: one templated kernel serves both
-// `ops/flash_sdpa.py:flash_sdpa` and `flash_sdpa_stream`.
+// Flash-attention forward for Hopper: one templated kernel serves
+// `ops/flash_sdpa.py:flash_sdpa`, `flash_sdpa_stream` and the forwards of
+// the two autograd Functions, `flash_sdpa_diff` and `flash_sdpa_stream_diff`.
 //
 // Replaces the TPU kernels photoverse_tpu/ops/flash_sdpa.py:_kernel (via
-// flash_sdpa, resident K/V, head dims 40 and 80) and _kernel_stream (via
-// flash_sdpa_stream, K/V streamed block by block, head dim 512). On Hopper
+// flash_sdpa, resident K/V, head dims 40 and 80), _kernel_stream (via
+// flash_sdpa_stream, K/V streamed block by block, head dim 512) and their
+// log-sum-exp variants _kernel_lse (via _flash_fwd_lse) and
+// _kernel_stream_lse (via _flash_stream_fwd_lse). With a non-null `lse`
+// the kernel also writes m + log(l) per query row into a (B, H, Sq) f32
+// array, the row statistic the backward recomputes p from; the TPU
+// kernels' 8- and 128-lane broadcasts of it were a tiling artifact and are
+// gone. The lse variants compute in f32 on the TPU; here q k^T takes the
+// bf16 inputs as they are (the products are exact, f32 accumulation) and
+// p v runs in TF32 (p keeps 11 significant bits), both as below. On Hopper
 // both become the same thing: a block owns BQ query rows of one (b, h)
 // and loops over K/V tiles it stages in shared memory, carrying the
 // online-softmax state (m, l, acc) in registers. That loop takes the place
@@ -49,9 +58,7 @@ struct Strides {
   long long q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh;
 };
 
-__device__ __forceinline__ uint32_t ld32(const bf16* p) {
-  return *reinterpret_cast<const uint32_t*>(p);
-}
+using pv::ld32;
 
 template <int D, int BQ, int BK>
 struct Cfg {
@@ -71,7 +78,8 @@ struct Cfg {
 template <int D, int BQ, int BK>
 __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     const bf16* __restrict__ q, const bf16* __restrict__ k, const bf16* __restrict__ v,
-    bf16* __restrict__ out, int H, int Sq, int Skv, Strides st, float scale) {
+    bf16* __restrict__ out, float* __restrict__ lse, int H, int Sq, int Skv, Strides st,
+    float scale) {
   using C = Cfg<D, BQ, BK>;
   constexpr int D16 = C::D16, LD = C::LD, WM = C::WM, WN = C::WN, NS = C::NS, NO = C::NO;
   constexpr int TPR = C::TPR, LDP = C::LDP;
@@ -196,7 +204,11 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
     }
   }
 
-  if (pq == 0) l_s[pr] = l_run;
+  if (pq == 0) {
+    l_s[pr] = l_run;
+    if (lse != nullptr && q0 + pr < Sq)
+      lse[(static_cast<long long>(b) * H + h) * Sq + q0 + pr] = m_run + logf(l_run);
+  }
   __syncthreads();
   const float inv[2] = {1.f / l_s[m0 + g], 1.f / l_s[m0 + g + 8]};
 #pragma unroll
@@ -215,8 +227,8 @@ __global__ void __launch_bounds__(NT) flash_fwd_kernel(
 }
 
 template <int D, int BQ, int BK>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                   int Skv, int H, const Strides& st, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int Sq, int Skv, int H, const Strides& st, cudaStream_t stream) {
   auto kern = flash_fwd_kernel<D, BQ, BK>;
   constexpr int smem = Cfg<D, BQ, BK>::SMEM;
   cudaError_t err = pv::allow_smem(kern, smem);
@@ -224,9 +236,20 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   dim3 grid((Sq + BQ - 1) / BQ, B * H);
   kern<<<grid, NT, smem, stream>>>(
       static_cast<const bf16*>(q), static_cast<const bf16*>(k), static_cast<const bf16*>(v),
-      static_cast<bf16*>(out), H, Sq, Skv, st,
+      static_cast<bf16*>(out), lse, H, Sq, Skv, st,
       static_cast<float>(1.0 / sqrt(static_cast<double>(D))));
   return cudaGetLastError();
+}
+
+cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                     int Sq, int Skv, int H, int D, const Strides& st, cudaStream_t s) {
+  if (Sq <= 0 || Skv <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
+  switch (D) {
+    case 40: return launch<40, 64, 64>(q, k, v, out, lse, B, Sq, Skv, H, st, s);
+    case 80: return launch<80, 64, 64>(q, k, v, out, lse, B, Sq, Skv, H, st, s);
+    case 512: return launch<512, 32, 32>(q, k, v, out, lse, B, Sq, Skv, H, st, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -240,12 +263,18 @@ extern "C" int pv_flash_fwd(const void* q, const void* k, const void* v, void* o
                             long long k_ss, long long k_sh, long long v_sb,
                             long long v_ss, long long v_sh, void* stream) {
   const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (Sq <= 0 || Skv <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
-  switch (D) {
-    case 40: return launch<40, 64, 64>(q, k, v, out, B, Sq, Skv, H, st, s);
-    case 80: return launch<80, 64, 64>(q, k, v, out, B, Sq, Skv, H, st, s);
-    case 512: return launch<512, 32, 32>(q, k, v, out, B, Sq, Skv, H, st, s);
-    default: return cudaErrorInvalidValue;
-  }
+  return dispatch(q, k, v, out, nullptr, B, Sq, Skv, H, D, st, static_cast<cudaStream_t>(stream));
+}
+
+// As pv_flash_fwd, and also writes lse, a contiguous (B, H, Sq) f32 tensor:
+// the log-sum-exp of each query row's scaled scores.
+extern "C" int pv_flash_fwd_lse(const void* q, const void* k, const void* v, void* out,
+                                void* lse, int B, int Sq, int Skv, int H, int D,
+                                long long q_sb, long long q_ss, long long q_sh,
+                                long long k_sb, long long k_ss, long long k_sh,
+                                long long v_sb, long long v_ss, long long v_sh,
+                                void* stream) {
+  const Strides st{q_sb, q_ss, q_sh, k_sb, k_ss, k_sh, v_sb, v_ss, v_sh};
+  return dispatch(q, k, v, out, static_cast<float*>(lse), B, Sq, Skv, H, D, st,
+                  static_cast<cudaStream_t>(stream));
 }

@@ -10,11 +10,17 @@ Port of photoverse_tpu/engine/inference.py (eval path).
     [uncond; cond] runs as one batch, the unconditional identity coming
     from an all-zero image.
   - A Python loop over the solver steps takes the place of lax.scan.
+  - `denoise(num_grad_steps=n)` runs all but the last n steps under
+    torch.no_grad() with eval fusion and the cached context K/V; the last
+    n steps carry gradients, recompute the context K/V (so gradients reach
+    to_k_ip / to_v_ip / LoRA) and, with train=True, run the UNet in train
+    mode on the caller's per-step draws (the face loss's inner generation).
 """
 
 from __future__ import annotations
 
-from typing import Optional, Tuple
+import contextlib
+from typing import Optional, Sequence, Tuple
 
 import torch
 
@@ -56,10 +62,12 @@ def precompute_fused_bundles(models: PhotoVerseModels, kv_cache):
 def encode_condition(
     models: PhotoVerseModels, pixel_values_clip: torch.Tensor, token_index: Optional[int]
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """CLIP-vision features -> (concept text embeddings, identity context)."""
-    last, collected = models.vision_encoder(
-        pixel_values_clip, collect_layers=models.image_encoder_layers_idx
-    )
+    """CLIP-vision features -> (concept text embeddings, identity context).
+    The features carry no gradient (the reference detaches them)."""
+    with torch.no_grad():
+        last, collected = models.vision_encoder(
+            pixel_values_clip, collect_layers=models.image_encoder_layers_idx
+        )
     feats = torch.stack([last, *collected], dim=0)  # (K, B, S, D)
     return (models.text_adapter(feats, token_index=token_index),
             models.image_adapter(feats, token_index=token_index))
@@ -74,27 +82,58 @@ def denoise(
     uncond_text_ctx: Optional[torch.Tensor],
     uncond_id_ctx: Optional[torch.Tensor],
     guidance_scale: float,
+    num_grad_steps: int = 0,
+    train: bool = False,
+    step_draws: Optional[Sequence[dict]] = None,
 ) -> torch.Tensor:
-    """The full DPM-Solver++ trajectory; returns the final latents."""
+    """The full DPM-Solver++ trajectory; returns the final latents.
+
+    With num_grad_steps = n > 0 the first N - n steps run under
+    torch.no_grad() and the last n carry gradients (the reference's
+    training-mode generation uses n = 1). train=True runs those n steps in
+    train mode; `step_draws` then holds one dict per grad step with its
+    `fusion_u` (L,) and its LoRA `dropout` generator."""
     use_cfg = guidance_scale != 1.0 and uncond_text_ctx is not None
+    if train and num_grad_steps > 0 and (step_draws is None or len(step_draws) < num_grad_steps):
+        raise ValueError("train=True grad steps need one step_draws entry per grad step")
     if use_cfg:
         text_ctx = torch.cat([uncond_text_ctx, text_ctx], dim=0)
         id_ctx = torch.cat([uncond_id_ctx, id_ctx], dim=0)
-    kv_cache = precompute_ctx_kv(models, text_ctx, id_ctx)
-    fused = precompute_fused_bundles(models, kv_cache) if models.unet.config.fused_blocks else None
+    # the prefix never carries gradients when grad steps follow it
+    prefix_mode = torch.no_grad() if num_grad_steps > 0 else contextlib.nullcontext()
+    with prefix_mode:
+        kv_cache = precompute_ctx_kv(models, text_ctx, id_ctx)
+    fused = None
+    if models.unet.config.fused_blocks and num_grad_steps == 0:  # the UNet drops them under grad
+        fused = precompute_fused_bundles(models, kv_cache)
 
-    steps = solver.step_inputs(latents.device)
-    carry = solver.init_carry(latents)
-    for i in range(solver.num_steps):
-        step = {k: v[i] for k, v in steps.items()}
-        lat = solver.latent(carry)
+    def eps_fn(lat, t, grad_step=None):
         x = torch.cat([lat, lat], dim=0) if use_cfg else lat
-        t = step["t"].expand(x.shape[0])
-        eps, _ = models.unet(x, t, text_ctx, id_ctx, ctx_kv=kv_cache, fused_bundles=fused)
+        t = t.expand(x.shape[0])
+        if grad_step is None:
+            eps, _ = models.unet(x, t, text_ctx, id_ctx, ctx_kv=kv_cache, fused_bundles=fused)
+        else:  # recompute the context K/V so gradients reach their projections
+            kw = {}
+            if train:
+                d = step_draws[grad_step]
+                kw = dict(train=True, fusion_u=d["fusion_u"], dropout_generator=d.get("dropout"))
+            eps, _ = models.unet(x, t, text_ctx, id_ctx, **kw)
         if use_cfg:
             eps_u, eps_c = eps.chunk(2, dim=0)
             eps = eps_u + guidance_scale * (eps_c - eps_u)
-        carry = solver.advance(step, carry, eps)
+        return eps
+
+    steps = solver.step_inputs(latents.device)
+    n = solver.num_steps
+    n_prefix = max(n - num_grad_steps, 0)
+    carry = solver.init_carry(latents)
+    with prefix_mode:
+        for i in range(n_prefix):
+            step = {k: v[i] for k, v in steps.items()}
+            carry = solver.advance(step, carry, eps_fn(solver.latent(carry), step["t"]))
+    for i in range(n_prefix, n):
+        step = {k: v[i] for k, v in steps.items()}
+        carry = solver.advance(step, carry, eps_fn(solver.latent(carry), step["t"], i - n_prefix))
     return solver.latent(carry)
 
 

@@ -53,9 +53,11 @@ class PhotoVerseAdapter(nn.Module):
             raise ValueError(f"expected {self.num_tokens} feature sets, got {embs.shape[0]}")
         # the inference path evaluates only token-MLP `token_index`
         idx = range(self.num_tokens) if token_index is None else [int(token_index)]
+        # f32 master weights in a bf16 model: compute in the weights' dtype
+        x = embs.to(self.mapping_0[0].weight.dtype)
         tokens = []
         for i in idx:
-            cls_out = getattr(self, f"mapping_{i}")(embs[i, :, 0])
-            patch_out = getattr(self, f"mapping_patch_{i}")(embs[i, :, 1:]).mean(dim=1)
+            cls_out = getattr(self, f"mapping_{i}")(x[i, :, 0])
+            patch_out = getattr(self, f"mapping_patch_{i}")(x[i, :, 1:]).mean(dim=1)
             tokens.append(cls_out + patch_out)
-        return torch.stack(tokens, dim=1)
+        return torch.stack(tokens, dim=1).to(embs.dtype)

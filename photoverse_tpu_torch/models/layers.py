@@ -1,6 +1,11 @@
 """Layers shared by the UNet and the VAE: norms that can run in f32 inside a
 bf16 model, the resnet block, the two linear forms of the cross-attention
-projections, and the containers that give modules their diffusers key paths."""
+projections (with LoRA dropout in train mode), and the containers that give
+modules their diffusers key paths.
+
+Trainable weights may stay f32 masters inside a bf16 model: `Linear`
+casts its weight to the activation's dtype in `forward`, as flax's
+`dtype=` does, so the same module serves both."""
 
 from __future__ import annotations
 
@@ -10,7 +15,10 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-__all__ = ["GroupNorm", "LayerNorm", "Linear", "LoraLinear", "ResnetBlock", "Group", "Sampler", "proj"]
+__all__ = [
+    "GroupNorm", "LayerNorm", "Linear", "LoraLinear", "ResnetBlock", "Group", "Sampler",
+    "proj", "dropout",
+]
 
 
 class GroupNorm(nn.GroupNorm):
@@ -45,36 +53,67 @@ class LayerNorm(nn.LayerNorm):
 
 
 class Linear(nn.Linear):
+    """nn.Linear computing in the input's dtype (an f32 master weight is
+    cast to a bf16 activation's dtype)."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        b = None if self.bias is None else self.bias.to(x.dtype)
+        return F.linear(x, self.weight.to(x.dtype), b)
+
     def effective_weight(self) -> torch.Tensor:
         return self.weight
 
 
-class LoraLinear(nn.Module):
-    """Bias-free Linear plus a LoRA branch, eval mode (no dropout):
-    y = x W^T + (alpha / r) * x A^T B^T. Parameter names follow peft
-    (`base_layer`, `lora_A.default`, `lora_B.default`)."""
+def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from `generator`: each element
+    is kept with probability 1 - p and scaled by 1 / (1 - p)."""
+    if generator is None:
+        raise ValueError("dropout in train mode needs an explicit torch.Generator")
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
-    def __init__(self, in_features: int, out_features: int, rank: int, alpha: float):
+
+class LoraLinear(nn.Module):
+    """Bias-free Linear plus a LoRA branch:
+    y = x W^T + (alpha / r) * drop(x) A^T B^T, where drop is dropout with
+    rate `dropout` in train mode and the identity in eval mode. Parameter
+    names follow peft (`base_layer`, `lora_A.default`, `lora_B.default`)."""
+
+    def __init__(self, in_features: int, out_features: int, rank: int, alpha: float,
+                 dropout: float = 0.0):
         super().__init__()
         self.scale = alpha / rank
+        self.dropout = dropout
         self.base_layer = nn.Linear(in_features, out_features, bias=False)
-        self.lora_A = nn.ModuleDict({"default": nn.Linear(in_features, rank, bias=False)})
-        self.lora_B = nn.ModuleDict({"default": nn.Linear(rank, out_features, bias=False)})
+        self.lora_A = nn.ModuleDict({"default": Linear(in_features, rank, bias=False)})
+        self.lora_B = nn.ModuleDict({"default": Linear(rank, out_features, bias=False)})
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.base_layer(x) + self.lora_B["default"](self.lora_A["default"](x)) * self.scale
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        h = dropout(x, self.dropout, generator) if train and self.dropout > 0 else x
+        return self.base_layer(x) + self.lora_B["default"](self.lora_A["default"](h)) * self.scale
 
     def effective_weight(self) -> torch.Tensor:
-        """(out, in) weight with the LoRA delta folded in."""
+        """(out, in) weight with the LoRA delta folded in (eval: no dropout)."""
         delta = self.lora_B["default"].weight @ self.lora_A["default"].weight
         return self.base_layer.weight + delta * self.scale
 
 
-def proj(in_features: int, out_features: int, lora_rank: int = 0, lora_alpha: float = 1.0) -> nn.Module:
-    """Bias-free projection, with a LoRA branch when lora_rank > 0."""
+def proj(in_features: int, out_features: int, lora_rank: int = 0, lora_alpha: float = 1.0,
+         lora_dropout: float = 0.0) -> nn.Module:
+    """Bias-free projection, with a LoRA branch when lora_rank > 0. Both
+    forms take (x, train=False, generator=None)."""
     if lora_rank > 0:
-        return LoraLinear(in_features, out_features, lora_rank, lora_alpha)
-    return Linear(in_features, out_features, bias=False)
+        return LoraLinear(in_features, out_features, lora_rank, lora_alpha, lora_dropout)
+    return _PlainProj(in_features, out_features, bias=False)
+
+
+class _PlainProj(Linear):
+    """A projection without LoRA: train mode and the generator do nothing."""
+
+    def forward(self, x: torch.Tensor, train: bool = False,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        return super().forward(x)
 
 
 class ResnetBlock(nn.Module):

@@ -1,5 +1,5 @@
 """SD-1.5 UNet with dual-context (text + identity) cross-attention, eval
-path. Port of photoverse_tpu/models/unet.py.
+and train modes. Port of photoverse_tpu/models/unet.py.
 
 Module names follow the diffusers UNet2DConditionModel state dict with the
 PhotoVerse processor's `attn2.processor.to_{k,v}_ip.0`, which
@@ -8,9 +8,17 @@ layout; convolutions run NCHW inside.
 
 Kernel routes (the build flags of the serving configuration):
   - use_flash_attention: self-attention at S >= flash_min_seq goes through
-    ops.flash_sdpa (the 64^2 and 32^2 levels of SD-1.5);
+    ops.flash_sdpa under torch.no_grad() and through the differentiable
+    ops.flash_sdpa_diff when grad is enabled (the 64^2 and 32^2 levels of
+    SD-1.5);
   - fused_blocks: a layer given a fused bundle runs its LN2 + dual-context
-    cross-attention + LN3 + GEGLU tail through ops.fused_block.
+    cross-attention + LN3 + GEGLU tail through ops.fused_block; eval only,
+    so the bundles are ignored in train mode or when grad is enabled.
+
+Train mode (`forward(..., train=True, fusion_u=..., dropout_generator=...)`):
+stochastic fusion per cross-attention layer from the caller's uniforms
+(`fusion_u`, one per layer in call order) and LoRA dropout drawn from the
+caller's generator.
 """
 
 from __future__ import annotations
@@ -24,9 +32,9 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from photoverse_tpu_torch.models.layers import GroupNorm, Group, LayerNorm, ResnetBlock, Sampler, proj
+from photoverse_tpu_torch.models.layers import GroupNorm, Group, LayerNorm, Linear, ResnetBlock, Sampler, proj
 from photoverse_tpu_torch.ops.attention import dual_context_attention, sdpa
-from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa
+from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa, flash_sdpa_diff
 from photoverse_tpu_torch.ops.fused_block import fused_cross_ff
 
 __all__ = ["UNetConfig", "UNet2DCondition", "timestep_embedding"]
@@ -43,6 +51,7 @@ class UNetConfig:
     norm_num_groups: int = 32
     lora_rank: int = 0  # 0 disables LoRA
     lora_alpha: float = 1.0
+    lora_dropout: float = 0.0  # on the LoRA branch's input, train mode only
     use_flash_attention: bool = False
     flash_min_seq: int = 1024
     fast_attention_scores: bool = False
@@ -66,7 +75,8 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10
 
 
 class SelfAttention(nn.Module):
-    """attn1; long sequences take the flash kernel when enabled."""
+    """attn1; long sequences take the flash kernels when enabled: the
+    differentiable route when grad is enabled, the no-grad one otherwise."""
 
     def __init__(self, ch: int, heads: int, cfg: UNetConfig):
         super().__init__()
@@ -85,7 +95,7 @@ class SelfAttention(nn.Module):
         v = self.to_v(x).reshape(B, S, H, C // H)
         cfg = self.cfg
         if cfg.use_flash_attention and S >= cfg.flash_min_seq:
-            out = flash_sdpa(q, k, v)
+            out = (flash_sdpa_diff if torch.is_grad_enabled() else flash_sdpa)(q, k, v)
         else:
             out = sdpa(q, k, v, fast_scores=cfg.fast_attention_scores)
         return self.to_out[0](out.reshape(B, S, C))
@@ -94,41 +104,44 @@ class SelfAttention(nn.Module):
 class _IPProcessor(nn.Module):
     def __init__(self, cross_dim: int, ch: int):
         super().__init__()
-        self.to_k_ip = nn.ModuleList([nn.Linear(cross_dim, ch, bias=False)])
-        self.to_v_ip = nn.ModuleList([nn.Linear(cross_dim, ch, bias=False)])
+        self.to_k_ip = nn.ModuleList([Linear(cross_dim, ch, bias=False)])
+        self.to_v_ip = nn.ModuleList([Linear(cross_dim, ch, bias=False)])
 
 
 class DualCrossAttention(nn.Module):
-    """attn2: text cross-attention + identity cross-attention, eval fusion
-    (sum). Returns (out, v_ip_norm (B, H, K))."""
+    """attn2: text cross-attention + identity cross-attention; eval fusion
+    (sum) or, in train mode, stochastic fusion from `fusion_u`. Returns
+    (out, v_ip_norm (B, H, K))."""
 
     def __init__(self, ch: int, heads: int, cfg: UNetConfig):
         super().__init__()
         self.heads = heads
-        cd, r, a = cfg.cross_attention_dim, cfg.lora_rank, cfg.lora_alpha
-        self.to_q = proj(ch, ch, r, a)
-        self.to_k = proj(cd, ch, r, a)
-        self.to_v = proj(cd, ch, r, a)
+        cd, r, a, p = cfg.cross_attention_dim, cfg.lora_rank, cfg.lora_alpha, cfg.lora_dropout
+        self.to_q = proj(ch, ch, r, a, p)
+        self.to_k = proj(cd, ch, r, a, p)
+        self.to_v = proj(cd, ch, r, a, p)
         self.to_out = nn.ModuleList([nn.Linear(ch, ch)])
         self.processor = _IPProcessor(cd, ch)
 
-    def context_kv(self, text_ctx: torch.Tensor, id_ctx: torch.Tensor):
+    def context_kv(self, text_ctx: torch.Tensor, id_ctx: torch.Tensor, train: bool = False,
+                   generator: Optional[torch.Generator] = None):
         """(k, v, k_ip, v_ip), each (B, n, H, d): constant over a denoise
         trajectory, so the engine computes it once per call."""
         B = text_ctx.shape[0]
         H = self.heads
         split = lambda t: t.reshape(B, -1, H, t.shape[-1] // H)  # noqa: E731
         p = self.processor
-        return (split(self.to_k(text_ctx)), split(self.to_v(text_ctx)),
+        return (split(self.to_k(text_ctx, train, generator)),
+                split(self.to_v(text_ctx, train, generator)),
                 split(p.to_k_ip[0](id_ctx)), split(p.to_v_ip[0](id_ctx)))
 
-    def forward(self, x, text_ctx, id_ctx, ctx_kv=None):
+    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, train=False, fusion_u=None, generator=None):
         B, S, C = x.shape
-        q = self.to_q(x).reshape(B, S, self.heads, C // self.heads)
+        q = self.to_q(x, train, generator).reshape(B, S, self.heads, C // self.heads)
         if ctx_kv is None:
-            ctx_kv = self.context_kv(text_ctx, id_ctx)
+            ctx_kv = self.context_kv(text_ctx, id_ctx, train, generator)
         k, v, k_ip, v_ip = (t.to(x.dtype) for t in ctx_kv)
-        fused, v_ip_norm = dual_context_attention(q, k, v, k_ip, v_ip)
+        fused, v_ip_norm = dual_context_attention(q, k, v, k_ip, v_ip, train=train, fusion_u=fusion_u)
         return self.to_out[0](fused.reshape(B, S, C)), v_ip_norm
 
 
@@ -164,14 +177,14 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(ch, 1e-5, nf)
         self.ff = _FeedForward(ch)
 
-    def forward(self, h, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None):
+    def forward(self, h, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None, **train_kw):
         h = h + self.attn1(self.norm1(h))
         if fused_bundle is not None:
             # the whole tail (LN2 + dual-cross + LN3 + GEGLU + residuals)
             h = fused_cross_ff(h.contiguous(), fused_bundle, self.heads)
             v_ip = fused_bundle["ctx"][3]  # (B, H, K, d)
             return h, v_ip.float().square().sum(dim=-1).sqrt()
-        a2, v_ip_norm = self.attn2(self.norm2(h), text_ctx, id_ctx, ctx_kv)
+        a2, v_ip_norm = self.attn2(self.norm2(h), text_ctx, id_ctx, ctx_kv, **train_kw)
         h = h + a2
         return h + self.ff(self.norm3(h)), v_ip_norm
 
@@ -186,17 +199,22 @@ class Transformer2D(nn.Module):
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, cfg)])
         self.proj_out = nn.Conv2d(ch, ch, 1)
 
-    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None):
+    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None, **train_kw):
         B, C, Hh, Ww = x.shape
         h = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(B, Hh * Ww, C)
-        h, vn = self.transformer_blocks[0](h, text_ctx, id_ctx, ctx_kv, fused_bundle)
+        h, vn = self.transformer_blocks[0](h, text_ctx, id_ctx, ctx_kv, fused_bundle, **train_kw)
         h = h.reshape(B, Hh, Ww, C).permute(0, 3, 1, 2)
         return self.proj_out(h) + x, vn
 
 
 class UNet2DCondition(nn.Module):
     """forward(sample (B,H,W,4), timesteps (B,), text_ctx (B,St,cross),
-    id_ctx (B,K,cross)) -> (eps (B,H,W,4) f32, v_ip_norms (B, L*H*K))."""
+    id_ctx (B,K,cross)) -> (eps (B,H,W,4) f32, v_ip_norms (B, L*H*K)).
+
+    train=True takes `fusion_u` (L,), one uniform in [0, 1) per
+    cross-attention layer in call order (the JAX package draws them as
+    uniform(fold_in(fusion_rng, i))), and, with lora_dropout > 0, the
+    `dropout_generator` the LoRA masks are drawn from."""
 
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
@@ -270,20 +288,29 @@ class UNet2DCondition(nn.Module):
         id_ctx: torch.Tensor,
         ctx_kv: Optional[Sequence] = None,  # per cross layer (k, v, k_ip, v_ip)
         fused_bundles: Optional[Sequence] = None,  # per cross layer bundle or None
+        train: bool = False,
+        fusion_u: Optional[torch.Tensor] = None,  # (L,) uniforms, train mode
+        dropout_generator: Optional[torch.Generator] = None,
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype = self.conv_in.weight.dtype
         B = sample.shape[0]
         timesteps = torch.as_tensor(timesteps, device=sample.device)
         if timesteps.dim() == 0:
             timesteps = timesteps.expand(B)
+        if train and fusion_u is None:
+            raise ValueError("fusion_u is required when train=True")
+        if train or torch.is_grad_enabled():
+            fused_bundles = None  # the fused tail is eval-only (no backward)
         layer = itertools.count()  # cross-attention layers in call order
 
         def cross(attn, x):
             i = next(layer)
+            kw = dict(train=True, fusion_u=fusion_u[i], generator=dropout_generator) if train else {}
             return attn(
                 x, text_ctx, id_ctx,
                 None if ctx_kv is None else ctx_kv[i],
                 None if fused_bundles is None else fused_bundles[i],
+                **kw,
             )
 
         temb = timestep_embedding(timesteps, self.config.block_out_channels[0]).to(dtype)

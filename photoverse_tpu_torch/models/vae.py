@@ -1,12 +1,15 @@
-"""SD-1.5 VAE decode path: `post_quant_conv` and the `Decoder` with its
-mid block. Port of photoverse_tpu/models/vae.py (the encoder comes with
-`from_noised_image` in a later slice).
+"""SD-1.5 VAE: the `Encoder` with `quant_conv` (`encode_moments`,
+`encode_sample`) and `post_quant_conv` with the `Decoder` (`decode`). Port
+of photoverse_tpu/models/vae.py.
 
-Module names follow the diffusers AutoencoderKL state dict
-(`decoder.*`, `post_quant_conv`), which `convert_vae` reads. Public
-tensors are NHWC; every GroupNorm uses eps 1e-6. With use_flash_attention
-the mid block's single-head attention at S >= 1024 (S=4096, d=512 at
-512px) takes the streaming flash kernel.
+Module names follow the diffusers AutoencoderKL state dict (`encoder.*`,
+`quant_conv`, `decoder.*`, `post_quant_conv`), which `convert_vae` reads.
+Public tensors are NHWC; every GroupNorm uses eps 1e-6. With
+use_flash_attention the mid blocks' single-head attention at S >= 1024
+(S=4096, d=512 at 512px) takes the streaming flash kernel: the no-grad
+forward under torch.no_grad(), the differentiable one (lse forward,
+chunked backward) when grad is enabled (the face loss backpropagates
+through the decoder).
 """
 
 from __future__ import annotations
@@ -19,15 +22,16 @@ from torch import nn
 import torch.nn.functional as F
 
 from photoverse_tpu_torch.models.layers import Group, GroupNorm, ResnetBlock, Sampler
-from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa_stream
+from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa_stream, flash_sdpa_stream_diff
 
-__all__ = ["VAEConfig", "Decoder", "AutoencoderKL"]
+__all__ = ["VAEConfig", "Encoder", "Decoder", "AutoencoderKL"]
 
 GN_EPS = 1e-6
 
 
 @dataclasses.dataclass(frozen=True)
 class VAEConfig:
+    in_channels: int = 3
     out_channels: int = 3
     latent_channels: int = 4
     block_out_channels: Tuple[int, ...] = (128, 256, 512, 512)
@@ -58,13 +62,68 @@ class AttnBlock(nn.Module):
         h = self.group_norm(x).flatten(2).transpose(1, 2)  # (B, S, C)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
         if self.use_flash and S >= self.FLASH_MIN_SEQ:
-            ctx = flash_sdpa_stream(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
+            fn = flash_sdpa_stream_diff if torch.is_grad_enabled() else flash_sdpa_stream
+            ctx = fn(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
         else:
             scores = torch.einsum("bqc,bkc->bqk", q.float(), k.float())
             probs = torch.softmax(scores * (C**-0.5), dim=-1).to(x.dtype)
             ctx = torch.einsum("bqk,bkc->bqc", probs.float(), v.float()).to(x.dtype)
         out = self.to_out[0](ctx)
         return x + out.transpose(1, 2).reshape(B, C, H, W)
+
+
+def _mid_block(ch: int, cfg: VAEConfig) -> Group:
+    G, nf = cfg.norm_num_groups, not cfg.fast_norms
+    mid = Group()
+    mid.resnets = nn.ModuleList([ResnetBlock(ch, ch, None, G, GN_EPS, nf) for _ in range(2)])
+    mid.attentions = nn.ModuleList([AttnBlock(ch, G, nf, cfg.use_flash_attention)])
+    return mid
+
+
+def _run_mid(mid: Group, x: torch.Tensor) -> torch.Tensor:
+    return mid.resnets[1](mid.attentions[0](mid.resnets[0](x)))
+
+
+def _conv_out_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """The last conv in f32, as in the reference; NCHW in, NHWC out."""
+    out = F.conv2d(x.float(), conv.weight.float(), conv.bias.float(), padding=1)
+    return out.permute(0, 2, 3, 1)
+
+
+class Encoder(nn.Module):
+    """pixels (B, H, W, 3) in [-1, 1] -> moments (B, H/f, W/f, 2 * latent) f32."""
+
+    def __init__(self, cfg: VAEConfig):
+        super().__init__()
+        ch = cfg.block_out_channels
+        G, nf = cfg.norm_num_groups, not cfg.fast_norms
+        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.down_blocks = nn.ModuleList()
+        prev = ch[0]
+        for i, c in enumerate(ch):
+            blk = Group()
+            blk.resnets = nn.ModuleList(
+                ResnetBlock(prev if j == 0 else c, c, None, G, GN_EPS, nf)
+                for j in range(cfg.layers_per_block)
+            )
+            if i < len(ch) - 1:
+                blk.downsamplers = nn.ModuleList([Sampler(nn.Conv2d(c, c, 3, stride=2))])
+            prev = c
+            self.down_blocks.append(blk)
+        self.mid_block = _mid_block(ch[-1], cfg)
+        self.conv_norm_out = GroupNorm(G, ch[-1], GN_EPS, nf)
+        self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1)
+
+    def forward(self, pixels: torch.Tensor) -> torch.Tensor:
+        x = self.conv_in(pixels.permute(0, 3, 1, 2).to(self.conv_in.weight.dtype))
+        for blk in self.down_blocks:
+            for r in blk.resnets:
+                x = r(x)
+            if hasattr(blk, "downsamplers"):
+                # asymmetric (0, 1) pad, then the stride-2 conv, as the SD VAE
+                x = blk.downsamplers[0].conv(F.pad(x, (0, 1, 0, 1)))
+        x = F.silu(self.conv_norm_out(_run_mid(self.mid_block, x)))
+        return _conv_out_f32(self.conv_out, x)
 
 
 class Decoder(nn.Module):
@@ -78,9 +137,7 @@ class Decoder(nn.Module):
             return ResnetBlock(i, o, None, G, GN_EPS, nf)
 
         self.conv_in = nn.Conv2d(cfg.latent_channels, ch[0], 3, padding=1)
-        self.mid_block = Group()
-        self.mid_block.resnets = nn.ModuleList([res(ch[0], ch[0]), res(ch[0], ch[0])])
-        self.mid_block.attentions = nn.ModuleList([AttnBlock(ch[0], G, nf, cfg.use_flash_attention)])
+        self.mid_block = _mid_block(ch[0], cfg)
         self.up_blocks = nn.ModuleList()
         prev = ch[0]
         for i, c in enumerate(ch):
@@ -98,30 +155,47 @@ class Decoder(nn.Module):
     def forward(self, z: torch.Tensor) -> torch.Tensor:
         """z (B, h, w, latent) NHWC -> pixels (B, H, W, 3) f32."""
         x = self.conv_in(z.permute(0, 3, 1, 2).to(self.conv_in.weight.dtype))
-        mid = self.mid_block
-        x = mid.resnets[1](mid.attentions[0](mid.resnets[0](x)))
+        x = _run_mid(self.mid_block, x)
         for blk in self.up_blocks:
             for r in blk.resnets:
                 x = r(x)
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
-        x = F.silu(self.conv_norm_out(x))
-        # the last conv runs in f32, as in the reference
-        out = F.conv2d(x.float(), self.conv_out.weight.float(), self.conv_out.bias.float(), padding=1)
-        return out.permute(0, 2, 3, 1)
+        return _conv_out_f32(self.conv_out, F.silu(self.conv_norm_out(x)))
+
+
+def _conv1x1_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+    """A 1x1 conv in f32 on an NHWC tensor."""
+    out = F.conv2d(x.permute(0, 3, 1, 2).float(), conv.weight.float(), conv.bias.float())
+    return out.permute(0, 2, 3, 1)
 
 
 class AutoencoderKL(nn.Module):
-    """Decode half of the SD VAE: decode(latents) = decoder(post_quant_conv)."""
+    """The SD VAE: encode_moments / encode_sample (encoder + quant_conv) and
+    decode (post_quant_conv + decoder)."""
 
     def __init__(self, config: VAEConfig = VAEConfig()):
         super().__init__()
         self.config = config
+        # the decode half first: init_params fills parameters in this order
         self.decoder = Decoder(config)
         self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
+        self.encoder = Encoder(config)
+        self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
+
+    def encode_moments(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
+        """pixels (B, H, W, 3) in [-1, 1] -> (mean, logvar), each
+        (B, h, w, latent) f32; logvar clipped to [-30, 20]."""
+        moments = _conv1x1_f32(self.quant_conv, self.encoder(pixels))
+        mean, logvar = moments.chunk(2, dim=-1)
+        return mean, logvar.clamp(-30.0, 20.0)
+
+    def encode_sample(self, pixels: torch.Tensor, noise: torch.Tensor) -> torch.Tensor:
+        """A sample of the latent distribution, mean + std * noise
+        (unscaled latents); `noise` is standard normal shaped as the mean."""
+        mean, logvar = self.encode_moments(pixels)
+        return mean + torch.exp(0.5 * logvar) * noise.to(mean.dtype)
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Unscaled latents (B, h, w, 4) NHWC -> pixels (B, H, W, 3)."""
-        w = self.post_quant_conv
-        z = F.conv2d(latents.permute(0, 3, 1, 2).float(), w.weight.float(), w.bias.float())
-        return self.decoder(z.permute(0, 2, 3, 1))
+        return self.decoder(_conv1x1_f32(self.post_quant_conv, latents))

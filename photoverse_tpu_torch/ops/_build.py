@@ -1,9 +1,10 @@
 """Build-on-first-use for the hand-written CUDA kernels in `csrc/`.
 
-All `csrc/*.cu` files compile with nvcc into one shared library with a
-plain C interface, loaded with ctypes (no PyTorch headers, so the build
-takes seconds). The library lands in `photoverse_tpu_torch/_build/`, which
-git ignores; it is rebuilt when any source is newer. A missing nvcc or a
+Each `csrc/*.cu` file compiles with its own nvcc process, all started
+together, and the objects link into one shared library with a plain C
+interface, loaded with ctypes (no PyTorch headers, so the build takes
+seconds). The library lands in `photoverse_tpu_torch/_build/`, which git
+ignores; it is rebuilt when any source is newer. A missing nvcc or a
 failed compile raises `KernelBuildError`: there is no fallback.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
@@ -42,7 +43,7 @@ LIB_NAME = "libphotoverse_kernels.so"
 NVCC_FALLBACKS = ("/usr/local/cuda/bin/nvcc",)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -53,6 +54,11 @@ L = ctypes.c_longlong
 SIGNATURES = {
     # q, k, v, out, B, Sq, Skv, H, D, strides (b, s, h) of q, k, v, stream
     "pv_flash_fwd": [P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, L, L, L, P],
+    # as pv_flash_fwd with lse (B, H, Sq) f32 after out
+    "pv_flash_fwd_lse": [P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, L, L, L, P],
+    # q, k, v, g, lse, delta, dq, dk, dv, B, S, H, D, strides (b, s, h) of
+    # q, k, v, g, stream
+    "pv_flash_bwd": [P] * 9 + [I] * 4 + [L] * 12 + [P],
     # h, out, kT, vT, kI, vI, ln2g, ln2b, wq, wout, bout, ln3g, ln3b,
     # wpa, wpg, bpa, bpg, wo, bo, B, S, C, H, St, K, F, stream
     "pv_fused_cross_ff": [P] * 19 + [I] * 7 + [P],
@@ -109,19 +115,28 @@ def build_library(build_dir: str = BUILD_DIR) -> tuple[str, str]:
             "toolkit to build"
         )
     os.makedirs(build_dir, exist_ok=True)
-    # unique name + rename: concurrent builders never load a partial file
-    tmp = f"{so}.{os.getpid()}.tmp"
-    cmd = [nvcc, *NVCC_FLAGS, "-o", tmp, *sources]
+    # unique names + rename: concurrent builders never load a partial file
+    tag = f"{os.getpid()}.tmp"
+    objs = [os.path.join(build_dir, os.path.basename(src) + f".{tag}.o") for src in sources]
+    tmp = f"{so}.{tag}"
+    cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", obj, src] for src, obj in zip(sources, objs)]
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+             for c in cmds]
+    logs = [p.communicate()[0] for p in procs]
     try:
-        res = subprocess.run(cmd, check=True, capture_output=True, text=True)
+        for c, p, log in zip(cmds, procs, logs):
+            if p.returncode != 0:
+                raise KernelBuildError(f"nvcc failed ({' '.join(c)}):\n{log}")
+        link = [nvcc, "-shared", "-o", tmp, *objs]
+        res = subprocess.run(link, capture_output=True, text=True)
+        if res.returncode != 0:
+            raise KernelBuildError(f"nvcc failed ({' '.join(link)}):\n{res.stdout}\n{res.stderr}")
         os.replace(tmp, so)
-    except subprocess.CalledProcessError as e:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
-        raise KernelBuildError(
-            f"nvcc failed ({' '.join(cmd)}):\n{e.stdout}\n{e.stderr}"
-        ) from e
-    return so, res.stdout + res.stderr
+    finally:
+        for f in objs + [tmp]:
+            if os.path.exists(f):
+                os.unlink(f)
+    return so, "".join(logs)
 
 
 _lib = None

@@ -108,7 +108,16 @@ def reference_cross_ff(h: torch.Tensor, bundle: dict, num_heads: int) -> torch.T
 
 
 def fused_cross_ff(h: torch.Tensor, bundle: dict, num_heads: int) -> torch.Tensor:
-    """Apply the fused block tail; returns the new (B, S, C) hidden states."""
+    """Apply the fused block tail; returns the new (B, S, C) hidden states.
+    Eval only: like the JAX kernel it has no backward, so it refuses inputs
+    that require grad while grad is enabled."""
+    if torch.is_grad_enabled():
+        ts = [h, *bundle.get("ctx", ())] + [t for t in bundle.values() if isinstance(t, torch.Tensor)]
+        if any(t.requires_grad for t in ts):
+            raise RuntimeError(
+                "fused_cross_ff has no backward: call it under torch.no_grad() "
+                "(training keeps the unfused block tail)"
+            )
     if h.device.type == "cpu":
         return reference_cross_ff(h, bundle, num_heads)
     if h.device.type != "cuda":

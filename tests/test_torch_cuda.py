@@ -9,7 +9,10 @@ TF32 operands) and round only their bf16 output. Tolerances: flash 2^-6 of
 the largest |out| (2-4 bf16 ulps of it; 0.3*randn inputs give a near-uniform
 softmax and small outputs, so an absolute limit would hide a dropped key
 tile); the fused tail 1/32 on unit-scale activations (|out| < 8, one bf16
-ulp).
+ulp). The lse forward and the flash backward take the same 2^-6 of the
+largest |value| per output (lse, dq, dk, dv: bf16 outputs from f32 sums
+with TF32 operands); the autograd Functions are held to gradients by
+autograd through the plain f32 forward at the same limit.
 """
 
 import pytest
@@ -103,3 +106,96 @@ def test_fused_kernel_matches_plain(gen, S, K, St):
     torch.cuda.synchronize()
     want = fb.reference_cross_ff(h.float(), bundle, H)
     assert (got.float() - want).abs().max().item() <= 1 / 32
+
+
+@pytest.mark.parametrize("B,S,H,d", [(1, 100, 2, 40), (2, 256, 2, 80), (1, 200, 1, 512)])
+def test_flash_fwd_lse_kernel_matches_plain(gen, B, S, H, d):
+    q, k, v = (_r(gen, B, S, H, d, scale=0.3) for _ in range(3))
+    counter = "flash_stream_fwd_lse" if d == 512 else "flash_sdpa_fwd_lse"
+    before = _build.launch_counts[counter]
+    out, lse = fs.flash_fwd_lse(q, k, v)
+    torch.cuda.synchronize()
+    assert _build.launch_counts[counter] == before + 1
+    want_out, want_lse = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())
+    assert lse.shape == (B, H, S) and lse.dtype == torch.float32
+    assert _flash_close(out, want_out) and _flash_close(lse, want_lse)
+
+
+def _bwd_inputs(gen, B, S, H, d):
+    q, k, v = (_r(gen, B, S, H, d, scale=0.3) for _ in range(3))
+    out, lse = fs.flash_fwd_lse_plain(q, k, v)
+    return q, k, v, out, lse, _r(gen, B, S, H, d)
+
+
+@pytest.mark.parametrize("B,S,H,d", [(1, 100, 2, 40), (2, 256, 3, 80), (1, 64, 1, 40)])
+def test_flash_bwd_kernel_matches_plain(gen, B, S, H, d):
+    args = _bwd_inputs(gen, B, S, H, d)
+    before = _build.launch_counts["flash_bwd"]
+    got = fs.flash_bwd(*args)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["flash_bwd"] == before + 1
+    want = fs.flash_bwd_plain(*(a.float() for a in args))
+    for g, w in zip(got, want):
+        assert g.dtype == torch.bfloat16 and g.shape == (B, S, H, d)
+        assert _flash_close(g, w)
+
+
+def test_flash_bwd_is_deterministic(gen):
+    args = _bwd_inputs(gen, 2, 192, 2, 80)
+    first = fs.flash_bwd(*args)
+    again = fs.flash_bwd(*args)
+    assert all(torch.equal(a, b) for a, b in zip(first, again))
+
+
+def test_flash_bwd_refuses_unequal_lengths(gen):
+    q, k = _r(gen, 1, 64, 1, 40), _r(gen, 1, 128, 1, 40)
+    lse = torch.zeros(1, 1, 64, device="cuda")
+    with pytest.raises(ValueError, match="equal"):
+        fs.flash_bwd(q, k, k, q, lse, q)
+    with pytest.raises(ValueError, match="equal"):
+        fs.flash_sdpa_diff(q, k, k)
+
+
+@pytest.mark.parametrize("diff,S,H,d", [
+    (fs.flash_sdpa_diff, 100, 2, 40), (fs.flash_sdpa_diff, 128, 2, 80),
+    (fs.flash_sdpa_stream_diff, 130, 1, 512),
+])
+def test_autograd_functions_match_autograd_through_plain(gen, diff, S, H, d):
+    # the fault this guards against: a kernel output written into a fresh
+    # buffer has no grad_fn, so gradients would stop at the layer silently
+    q, k, v = (_r(gen, 2, S, H, d, scale=0.3).requires_grad_() for _ in range(3))
+    w = torch.randn(2, S, H, d, generator=gen, device="cuda")
+    out = diff(q, k, v)
+    assert out.grad_fn is not None
+    (out.float() * w).sum().backward()
+    got = [t.grad.clone() for t in (q, k, v)]
+    for t in (q, k, v):
+        t.grad = None
+    (fs.flash_sdpa_plain(q, k, v).float() * w).sum().backward()
+    for g, t in zip(got, (q, k, v)):
+        assert _flash_close(g, t.grad.float())
+
+
+def test_no_grad_kernels_refuse_grad(gen):
+    q = _r(gen, 1, 64, 1, 40).requires_grad_()
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fs.flash_sdpa(q, q, q)
+    with pytest.raises(RuntimeError, match="no gradient"):
+        fs.flash_sdpa_stream(q, q, q)
+    with torch.no_grad():
+        assert fs.flash_sdpa(q, q, q).shape == q.shape
+
+
+def test_fused_kernel_refuses_grad(gen):
+    B, S, C, H, St, K, F = 1, 64, 320, 8, 7, 1, 1280
+    d = C // H
+    bundle = {k: torch.zeros(n, device="cuda") for k, n in
+              (("ln2g", C), ("ln2b", C), ("bout", C), ("ln3g", C), ("ln3b", C), ("bo", C),
+               ("bpa", F), ("bpg", F))}
+    bundle.update(wq=_r(gen, H, C, d), wout=_r(gen, H, d, C), wpa=_r(gen, C, F), wpg=_r(gen, C, F),
+                  wo=_r(gen, F, C), ctx=tuple(_r(gen, B, H, n, d) for n in (St, St, K, K)))
+    h = _r(gen, B, S, C).requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        fb.fused_cross_ff(h, bundle, H)
+    with torch.no_grad():
+        assert fb.fused_cross_ff(h, bundle, H).shape == h.shape

@@ -77,8 +77,8 @@ def test_vae_state_dict_round_trip(pair):
     back = t2j.convert_strict(t2j.convert_vae, sd, block_out_channels=c.block_out_channels,
                               layers_per_block=c.layers_per_block)
     _assert_same_tree(back, jax.tree.map(np.asarray, params.vae))
-    own = _np_sd(port.vae)  # the decode half holds exactly the decoder.* / post_quant_conv.* entries
-    assert sorted(own) == sorted(k for k in sd if k.startswith(("decoder.", "post_quant_conv.")))
+    own = _np_sd(port.vae)  # encoder, quant_conv, decoder and post_quant_conv: every entry
+    assert sorted(own) == sorted(sd)
     for k, v in own.items():
         np.testing.assert_array_equal(v, sd[k])
 
@@ -170,6 +170,54 @@ def test_vae_decode_matches_jax(pair):
     got = port.vae.decode(torch.from_numpy(lat))
     assert got.shape == (2, 32, 32, 3)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+
+
+def test_vae_encode_matches_jax(pair):
+    # encode_moments and encode_sample with the same noise (the JAX package
+    # draws it from its key inside encode_sample; the port takes it in)
+    modules, params, port = pair
+    rng = np.random.RandomState(5)
+    px = rng.uniform(-1, 1, (2, 32, 32, 3)).astype(np.float32)
+    key = jax.random.PRNGKey(6)
+    want_mean, want_logvar = modules.vae.apply({"params": params.vae}, jnp.asarray(px), method="encode_moments")
+    want = modules.vae.apply({"params": params.vae}, jnp.asarray(px), key, method="encode_sample")
+    noise = np.array(jax.random.normal(key, want_mean.shape, want_mean.dtype))
+    mean, logvar = port.vae.encode_moments(torch.from_numpy(px))
+    got = port.vae.encode_sample(torch.from_numpy(px), torch.from_numpy(noise))
+    assert got.shape == (2, 16, 16, 4) and got.dtype == torch.float32
+    for g, w in ((mean, want_mean), (logvar, want_logvar), (got, want)):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), rtol=RTOL, atol=ATOL)
+
+
+@pytest.mark.parametrize("cached", [False, True])
+def test_unet_train_mode_matches_jax(cached, pair):
+    # train=True: stochastic fusion on JAX's per-layer uniforms
+    # (uniform(fold_in(fusion_rng, i))), lora_dropout 0 (flax's masks cannot
+    # be rebuilt outside flax); the fusion rules pick text-only, id-only or
+    # the sum per layer, so all three branches appear across the layers
+    modules, params = tiny_bundle(lora_rank=4, seed=2)
+    port = port_models(modules, params)
+    cross = modules.unet.config.cross_attention_dim
+    rng = np.random.RandomState(7)
+    sample = rng.randn(2, 16, 16, 4).astype(np.float32)
+    t = np.array([10, 500], np.int32)
+    text, idc = rng.randn(2, 12, cross).astype(np.float32), rng.randn(2, 5, cross).astype(np.float32)
+    key = jax.random.PRNGKey(11)
+    L = len(port.unet.cross_attentions())
+    u = np.array([float(jax.random.uniform(jax.random.fold_in(key, i), ())) for i in range(L)], np.float32)
+    kv_j = jax_ctx_kv(modules, params, jnp.asarray(text), jnp.asarray(idc)) if cached else None
+    want, want_n = modules.unet.apply({"params": params.unet}, jnp.asarray(sample), jnp.asarray(t),
+                                      jnp.asarray(text), jnp.asarray(idc), train=True, fusion_rng=key,
+                                      ctx_kv=kv_j)
+    T = torch.from_numpy
+    kv_t = precompute_ctx_kv(port, T(text), T(idc)) if cached else None
+    got, got_n = port.unet(T(sample), T(t), T(text), T(idc), ctx_kv=kv_t, train=True, fusion_u=T(u))
+    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want), rtol=RTOL, atol=ATOL)
+    np.testing.assert_allclose(got_n.detach().numpy(), np.asarray(want_n), rtol=RTOL, atol=ATOL)
+    eval_out, _ = port.unet(T(sample), T(t), T(text), T(idc), ctx_kv=kv_t)
+    assert not np.allclose(eval_out.detach().numpy(), got.detach().numpy())
+    with pytest.raises(ValueError, match="fusion_u"):
+        port.unet(T(sample), T(t), T(text), T(idc), train=True)
 
 
 def test_init_params_follows_the_numpy_fill_rules(pair):

@@ -127,11 +127,113 @@ def test_fused_cross_ff_matches_jax(St, K):
     assert tb["ctx"][2].shape == (B, H, K, C // H)
 
 
+@pytest.mark.parametrize("S,d", [(256, 40), (128, 80)])
+def test_flash_fwd_lse_plain_matches_jax(S, d):
+    # atol 1e-5 (out), 1e-5 (lse): the Pallas lse kernel in interpret mode,
+    # 64-row tiles, against the port's one-shot f32 logsumexp; the TPU
+    # kernel's 8-lane lse broadcast is gone from the port's (B, H, S)
+    q, k, v = _qkv(2, S, S, 2, d, seed=S + d + 1)
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse = jflash._flash_fwd_lse(*map(jnp.asarray, (q, k, v)), q_tile=64, k_tile=64)
+    got, lse = tflash.flash_fwd_lse(T(q), T(k), T(v))
+    assert lse.shape == (2, 2, S)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5)
+
+
+def _bwd_args(B, S, H, d, seed):
+    q, k, v = _qkv(B, S, S, H, d, seed)
+    out, lse = tflash.flash_fwd_lse_plain(T(q), T(k), T(v))
+    g = _rand(np.random.RandomState(seed + 1), B, S, H, d)
+    return q, k, v, out.numpy(), lse.numpy(), g
+
+
+@pytest.mark.parametrize("S,d", [(256, 40), (128, 80)])
+def test_flash_bwd_plain_matches_jax(S, d):
+    # atol 2e-5 on dq/dk/dv of size ~0.1-1: the two Pallas backward kernels
+    # (dq; dk/dv over 64-row q tiles) in interpret mode against the port's
+    # explicit formula, both f32
+    args = _bwd_args(2, S, 2, d, seed=S + d)
+    with pltpu.force_tpu_interpret_mode():
+        want = jflash._flash_bwd(*map(jnp.asarray, args), q_tile=64, k_tile=64)
+    got = tflash.flash_bwd(*map(T, args))
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
+
+
+def test_stream_fwd_lse_and_chunked_bwd_match_jax():
+    # the streaming lse forward (Pallas, interpret, four K/V blocks) and the
+    # chunked backward (plain XLA; the port's in plain torch, chunks of 64):
+    # atol 1e-5 / 2e-5
+    args = _bwd_args(1, 256, 1, 64, seed=5)
+    q, k, v = args[:3]
+    with pltpu.force_tpu_interpret_mode():
+        want, want_lse = jflash._flash_stream_fwd_lse(*map(jnp.asarray, (q, k, v)), q_tile=64, k_tile=64)
+    got, lse = tflash.flash_fwd_lse(T(q), T(k), T(v))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), atol=1e-5)
+    np.testing.assert_allclose(lse.numpy(), np.asarray(want_lse), atol=1e-5)
+    want = jflash._stream_bwd_chunked(*map(jnp.asarray, args), chunk=64)
+    got = tflash.stream_bwd_chunked(*map(T, args), chunk=64)
+    for g, w in zip(got, want):
+        np.testing.assert_allclose(g.numpy(), np.asarray(w), atol=2e-5)
+
+
+def test_differentiable_flash_refuses_unequal_lengths():
+    q, k, v = map(jnp.asarray, _qkv(1, 64, 128, 1, 40, seed=1))
+    with pytest.raises(ValueError, match="equal"):
+        jflash._flash_fwd_lse(q, k, v)
+    with pytest.raises(ValueError, match="equal"):
+        jflash._flash_bwd(q, k, v, q, jnp.zeros((1, 1, 64)), q)
+    tq, tk = T(np.array(q)), T(np.array(k))
+    for fn in (tflash.flash_sdpa_diff, tflash.flash_sdpa_stream_diff):
+        with pytest.raises(ValueError, match="equal"):
+            fn(tq, tk, tk)
+    with pytest.raises(ValueError, match="equal"):
+        tflash.flash_bwd(tq, tk, tk, tq, torch.zeros(1, 1, 64), tq)
+
+
+@pytest.mark.parametrize("diff", [tflash.flash_sdpa_diff, tflash.flash_sdpa_stream_diff])
+def test_autograd_function_backward_matches_autograd(diff):
+    # the Functions' plain backward (explicit formula / chunked) against
+    # torch.autograd through the plain forward: rtol 1e-5 / atol 1e-6 (f32)
+    q, k, v = (T(x).requires_grad_() for x in _qkv(2, 96, 96, 2, 16, seed=3))
+    w = T(_rand(np.random.RandomState(4), 2, 96, 2, 16))
+    out = diff(q, k, v)
+    assert out.grad_fn is not None
+    got = torch.autograd.grad((out * w).sum(), (q, k, v))
+    want = torch.autograd.grad((tflash.flash_sdpa_plain(q, k, v) * w).sum(), (q, k, v))
+    for g, wt in zip(got, want):
+        torch.testing.assert_close(g, wt, rtol=1e-5, atol=1e-6)
+
+
+def test_no_grad_kernels_refuse_inputs_that_require_grad():
+    # their kernels write fresh buffers without a grad_fn: refused under
+    # grad on every device, accepted under no_grad
+    q = T(_qkv(1, 64, 64, 2, 40, seed=0)[0]).requires_grad_()
+    for fn in (tflash.flash_sdpa, tflash.flash_sdpa_stream):
+        with pytest.raises(RuntimeError, match="no gradient"):
+            fn(q, q, q)
+        with torch.no_grad():
+            fn(q, q, q)
+    w, ctx = _rand_bundle(np.random.RandomState(0), 1, 16, 2, 7, 1)
+    bundle = tfused.attach_ctx({k: T(x) for k, x in w.items()}, tuple(map(T, ctx)), torch.float32)
+    h = torch.zeros(1, 8, 16, requires_grad=True)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfused.fused_cross_ff(h, bundle, 2)
+    bundle["wq"].requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        tfused.fused_cross_ff(h.detach(), bundle, 2)
+    with torch.no_grad():
+        tfused.fused_cross_ff(h, bundle, 2)
+
+
 def test_wrappers_count_no_launch_on_cpu():
     _build.reset_launch_counts()
     q, k, v = map(T, _qkv(1, 64, 64, 2, 40, seed=0))
     tflash.flash_sdpa(q, k, v)
     tflash.flash_sdpa_stream(q, k, v)
+    out, lse = tflash.flash_fwd_lse(q, k, v)
+    tflash.flash_bwd(q, k, v, out, lse, q)
     w, ctx = _rand_bundle(np.random.RandomState(0), 1, 16, 2, 7, 1)
     tfused.fused_cross_ff(torch.zeros(1, 8, 16), tfused.attach_ctx(
         {k: T(x) for k, x in w.items()}, tuple(map(T, ctx)), torch.float32), 2)

@@ -41,3 +41,26 @@ def test_solver_steps_match_jax():
         tc = ts.advance({k: v[i] for k, v in tx.items()}, tc, torch.from_numpy(eps))
         for a, b in zip(jc, tc):
             np.testing.assert_allclose(b.numpy(), np.asarray(a), rtol=1e-6, atol=1e-6)
+
+
+def test_ddpm_add_noise_matches_jax():
+    # per-row timesteps, f32: rtol 1e-6
+    js, ts = jsched.make_sd15_schedule(), tsched.make_sd15_schedule()
+    rng = np.random.RandomState(1)
+    x, n = rng.randn(3, 4, 4, 4).astype(np.float32), rng.randn(3, 4, 4, 4).astype(np.float32)
+    t = np.array([0, 421, 999])
+    want = js.add_noise(jnp.asarray(x), jnp.asarray(n), jnp.asarray(t))
+    got = ts.add_noise(torch.from_numpy(x), torch.from_numpy(n), torch.from_numpy(t))
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
+
+
+@pytest.mark.parametrize("step_index", [0, 3])
+def test_solver_add_noise_matches_jax(step_index):
+    js = jsched.DPMSolverMultistep.create(jsched.make_sd15_schedule(), 10)
+    ts = tsched.DPMSolverMultistep.create(tsched.make_sd15_schedule(), 10)
+    rng = np.random.RandomState(2)
+    x, n = rng.randn(2, 4, 4, 4).astype(np.float32), rng.randn(2, 4, 4, 4).astype(np.float32)
+    want = js.add_noise(jnp.asarray(x), jnp.asarray(n), step_index)
+    got = ts.add_noise(torch.from_numpy(x), torch.from_numpy(n), step_index)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-6, atol=1e-7)
