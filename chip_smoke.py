@@ -6,8 +6,10 @@ Phases (each one fails the run on error):
   1. device: a CUDA card is required; prints its name and power limit.
   2. build:  compiles photoverse_tpu_torch/csrc/*.cu with nvcc (sm_90a).
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card at the shapes the main paths give it, with CUDA-event times;
-     one planted fault per training kernel shows that its limit catches it.
+     the card at the shapes the main paths give it (and at ragged lengths
+     for the wgmma flash kernel), with CUDA-event times beside the bound
+     from ops/bounds.py and one PyTorch library call on the same inputs;
+     one planted fault per kernel shows that its limit catches it.
   4. pipeline: SD-1.5-width models with random weights from a numpy seed,
      512px identity-conditioned generation (DPM-Solver++ 50 steps,
      guidance 1, two requests with their own noise seeds), then a guidance-6
@@ -38,18 +40,19 @@ from unittest import mock
 
 import numpy as np
 
-# flash: kernel output is bf16 (p is rounded to TF32 inside). With 0.3*randn
-# inputs the softmax is near uniform and |out| is only 0.015-0.03, so the
-# limit is relative to the largest |out|: 2^-6 of it is 2-4 bf16 ulps there.
-# Dropping the last 32 or 64 keys moves it by 9-26% of max|out| (PERF.md).
+# flash: kernel output is bf16 (p is rounded to bf16 inside for head dims
+# 40 and 80, to TF32 for 512). With 0.3*randn inputs the softmax is near
+# uniform and |out| is only 0.015-0.03, so the limit is relative to the
+# largest |out|: 2^-6 of it is 2-4 bf16 ulps there. Dropping the last 32 or
+# 64 keys moves it by 9-26% of max|out| (PERF.md).
 FLASH_RTOL = 2**-6
 # the lse output of the training forwards: an error e in lse scales the
 # backward's recomputed p by exp(-e), so it is held absolutely, below a
 # bf16 half-ulp in relative terms (the kernel computes it in f32)
 LSE_ATOL = 2**-10
-# fused block tail: f32 inside with TF32 product operands, output rounded
-# to bf16 once; unit-scale activations give |out| < 8, where a bf16 ulp is
-# <= 2^-5, so 1/32 is one ulp (the rounding itself is at most half of it)
+# fused block tail: f32 inside with bf16-pair product operands, output
+# rounded to bf16 once; unit-scale activations give |out| < 8, where a bf16
+# ulp is <= 2^-5, so 1/32 is one ulp (the rounding itself is at most half)
 FUSED_ATOL = 1 / 32
 # pipeline: max abs pixel difference (in [-1, 1]) between the kernel run and
 # the same run with each kernel swapped for its plain version. Guidance 1:
@@ -106,9 +109,15 @@ def phase_build():
     so, out = _build.build_library()
     _build.load_library()
     log(f"build: {so} in {time.perf_counter() - t0:.1f}s")
-    for line in out.splitlines():  # per kernel: name, registers, spills
-        if any(w in line for w in ("Compiling entry", "registers", "spill")):
-            log(f"  {line.strip()}")
+    name = ""
+    for line in out.splitlines():  # per kernel: name with template arguments, spills, registers
+        if "Compiling entry" in line:
+            name = line.split("'")[1] if "'" in line else line
+            name = name[max(name.find("kernel") - 16, 0):][:60]  # its name and template arguments
+        elif "spill" in line:
+            log(f"  {name}: {line.strip()}")
+        elif "registers" in line:
+            log(f"  {name}: {line.split(':', 1)[-1].strip()}")
 
 
 def _time_ms(fn, iters: int) -> float:
@@ -127,6 +136,36 @@ def _time_ms(fn, iters: int) -> float:
     return start.elapsed_time(end) / iters
 
 
+def _device_ms(fn, iters: int):
+    """Device time of one call: the sum of its kernels' time in a
+    torch.profiler trace. The host enqueues a call through a Python wrapper
+    in 30-90 us, so for a shorter kernel the CUDA-event time of a run of
+    launches reads the host's pace and this reads the card's. A trace now
+    and then comes back without device events: it is taken again, and after
+    three empty ones the answer is None (not measured), never another
+    clock's reading under this name."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    for _ in range(3):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(iters):
+                fn()
+            torch.cuda.synchronize()
+        evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+        attr = "self_device_time_total" if evs and hasattr(evs[0], "self_device_time_total") else "self_cuda_time_total"
+        total = sum(getattr(e, attr) for e in evs)
+        if total > 0:
+            return total / 1e3 / iters
+    return None
+
+
+def _fmt_ms(ms) -> str:
+    return "not measured" if ms is None else f"{ms:.4f}"
+
+
 def _fused_inputs(gen, B, S, C, H, St, K, F, dev):
     import torch
 
@@ -138,21 +177,37 @@ def _fused_inputs(gen, B, S, C, H, St, K, F, dev):
 
     bundle = {
         "ln2g": 1 + rn(C, scale=0.1, dtype=f32), "ln2b": rn(C, scale=0.1, dtype=f32),
-        "wq": rn(H, C, d, scale=C**-0.5), "wout": rn(H, d, C, scale=C**-0.5),
+        "wq": rn(C, C, scale=C**-0.5), "wout": rn(C, C, scale=C**-0.5),
         "bout": rn(C, scale=0.1, dtype=f32),
         "ln3g": 1 + rn(C, scale=0.1, dtype=f32), "ln3b": rn(C, scale=0.1, dtype=f32),
-        "wpa": rn(C, F, scale=C**-0.5), "wpg": rn(C, F, scale=C**-0.5),
+        "wpa": rn(F, C, scale=C**-0.5), "wpg": rn(F, C, scale=C**-0.5),
         "bpa": rn(F, scale=0.1, dtype=f32), "bpg": rn(F, scale=0.1, dtype=f32),
-        "wo": rn(F, C, scale=F**-0.5), "bo": rn(C, scale=0.1, dtype=f32),
+        "wo": rn(C, F, scale=F**-0.5), "bo": rn(C, scale=0.1, dtype=f32),
         "ctx": (rn(B, H, St, d), rn(B, H, St, d), rn(B, H, K, d), rn(B, H, K, d)),
     }
     return rn(B, S, C), bundle
 
 
-def phase_kernels(source_tpu: dict):
-    """Every kernel against its plain version at the main path's shapes."""
+def _sdpa_backend(q, k, v) -> str:
+    """The backend one scaled_dot_product_attention call picks for these
+    (B, H, S, d) inputs, by name where this PyTorch tells."""
     import torch
 
+    choice = getattr(torch, "_fused_sdp_choice", None)
+    if choice is None:
+        return "unknown"
+    names = {0: "math", 1: "flash", 2: "efficient", 3: "cudnn"}
+    code = int(choice(q, k, v))
+    return names.get(code, f"backend {code}")
+
+
+def phase_kernels(source_tpu: dict):
+    """Every kernel against its plain version at the main path's shapes,
+    timed beside its bound and one library call on the same inputs."""
+    import torch
+    import torch.nn.functional as nnf
+
+    from photoverse_tpu_torch.ops import bounds
     from photoverse_tpu_torch.ops import flash_sdpa as fs
     from photoverse_tpu_torch.ops import fused_block as fb
 
@@ -160,14 +215,49 @@ def phase_kernels(source_tpu: dict):
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
     rows = []
+    wgmma_src = "photoverse_tpu_torch/csrc/flash_fwd_wgmma.cu"
+    mma_src = "photoverse_tpu_torch/csrc/flash_fwd.cu"
 
-    def record(name, route, source, replaces, err, tol, ms, plain_ms, shape, ok=None):
+    def record(name, route, source, replaces, err, tol, fn, iters, plain_ms, shape, work, library=None,
+               ok=None):
+        """Times `fn` (the kernel's wrapper on this row's inputs) and the
+        library call, each by CUDA events over a run of launches (`ms`,
+        `library_ms`) and by the profiler's device time (`device_ms`,
+        `library_device_ms`), and adds the row."""
         ok = bool(np.isfinite(err) and err <= tol) if ok is None else ok
+        ms, dev_ms = _time_ms(fn, iters), _device_ms(fn, iters)
+        lib_ms = lib_dev = None
+        if library is not None:
+            lib_ms, lib_dev = _time_ms(library, iters), _device_ms(library, iters)
+        bound = bounds.bound_ms(*work)
+        lib = "none" if library is None else f"{lib_ms:.4f} ms (device {_fmt_ms(lib_dev)})"
         log(f"kernel {name} {shape}: max_abs_err {err:.6g} (tol {tol:.6g}) "
-            f"kernel {ms:.4f} ms plain {plain_ms:.4f} ms {'OK' if ok else 'FAIL'}")
+            f"kernel {ms:.4f} ms (device {_fmt_ms(dev_ms)}), bound {bound:.4f} ms (by {bounds.bound_by(*work)}), "
+            f"plain {plain_ms:.4f} ms, library call {lib} {'OK' if ok else 'FAIL'}")
         rows.append(dict(name=name, route=route, source=source, replaces=replaces,
-                         shape=shape, max_abs_err=err, tol=tol, ms=ms, plain_ms=plain_ms, ok=ok))
+                         shape=shape, max_abs_err=err, tol=tol, ms=ms, device_ms=dev_ms, plain_ms=plain_ms,
+                         bound_ms=bound, bound_by=bounds.bound_by(*work), library_ms=lib_ms,
+                         library_device_ms=lib_dev, ok=ok))
         torch.cuda.synchronize()
+
+    def sdpa(q, k, v, label=None):
+        """One scaled_dot_product_attention call on the same bf16 inputs in
+        (B, H, S, d) layout; timed here, used nowhere in the port."""
+        qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+        if label:
+            log(f"  scaled_dot_product_attention for {label} takes the {_sdpa_backend(qt, kt, vt)} backend")
+        return lambda: nnf.scaled_dot_product_attention(qt, kt, vt)
+
+    def check(ok, what):
+        log(f"  {what} {'OK' if ok else 'FAIL'}")
+        if not ok:
+            rows.append(dict(name=what, ok=False))
+
+    def fault(caught, what):
+        log(f"  planted fault, {what}: {'caught' if caught else 'NOT CAUGHT'}")
+        faults_caught.append(caught)
+
+    faults_caught = []
 
     flash_cases = [  # (B, Sq, Skv, H, d): the UNet's 64^2 and 32^2 levels, then Skv > Sq
         (2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (2, 1024, 4096, 8, 40),
@@ -180,10 +270,29 @@ def phase_kernels(source_tpu: dict):
         want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
         err = (got.float() - want).abs().max().item()
         tol = FLASH_RTOL * want.abs().max().item()
-        ms = _time_ms(lambda: fs.flash_sdpa(q, k, v), 20)
         plain_ms = _time_ms(lambda: fs.flash_sdpa_plain(q, k, v), 5)
-        record("flash_sdpa", "cuda", "photoverse_tpu_torch/csrc/flash_fwd.cu",
-               source_tpu["flash_sdpa"], err, tol, ms, plain_ms, [B, Sq, Skv, H, d])
+        record("flash_sdpa", "cuda", wgmma_src, source_tpu["flash_sdpa"], err, tol,
+               lambda: fs.flash_sdpa(q, k, v), 20, plain_ms,
+               [B, Sq, Skv, H, d], bounds.flash_fwd(B, Sq, Skv, H, d), sdpa(q, k, v))
+        if Sq == Skv and d == 40:
+            dropped = fs.flash_sdpa(q, k[:, :-64], v[:, :-64])
+            e = (dropped.float() - want).abs().max().item()
+            fault(e > tol, f"flash_sdpa last 64 keys dropped: err {e:.6g} (tol {tol:.6g})")
+    # lengths that are no multiple of the 64/128-row and 64-key tiles, keys
+    # shorter than one tile, batch 1 and 4: the TMA boxes' zero fill and the
+    # masks of the last tile
+    for B, Sq, Skv, H, d in ((1, 1000, 4000, 8, 40), (4, 333, 77, 8, 80), (2, 4000, 1000, 8, 40),
+                             (1, 77, 77, 8, 80)):
+        q = (0.3 * torch.randn(B, Sq, H, d, generator=gen, device=dev)).bfloat16()
+        k = (0.3 * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
+        v = (0.3 * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
+        want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
+        tol = FLASH_RTOL * want.abs().max().item()
+        got = fs.flash_sdpa(q, k, v)
+        err = (got.float() - want).abs().max().item()
+        same = torch.equal(got, fs.flash_sdpa(q, k, v))
+        check(err <= tol and same, f"flash_sdpa ragged {[B, Sq, Skv, H, d]}: max_abs_err {err:.6g} "
+              f"(tol {tol:.6g}), repeat bit-identical {same}")
 
     B, S, H, d = 2, 4096, 1, 512  # the VAE decoder's mid-block attention
     q, k, v = ((0.3 * torch.randn(B, S, H, d, generator=gen, device=dev)).bfloat16() for _ in range(3))
@@ -191,10 +300,10 @@ def phase_kernels(source_tpu: dict):
     want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
     err = (got.float() - want).abs().max().item()
     tol = FLASH_RTOL * want.abs().max().item()
-    ms = _time_ms(lambda: fs.flash_sdpa_stream(q, k, v), 10)
     plain_ms = _time_ms(lambda: fs.flash_sdpa_plain(q, k, v), 5)
-    record("flash_sdpa_stream", "cuda", "photoverse_tpu_torch/csrc/flash_fwd.cu",
-           source_tpu["flash_sdpa_stream"], err, tol, ms, plain_ms, [B, S, S, H, d])
+    record("flash_sdpa_stream", "cuda", mma_src, source_tpu["flash_sdpa_stream"], err, tol,
+           lambda: fs.flash_sdpa_stream(q, k, v), 10, plain_ms, [B, S, S, H, d],
+           bounds.flash_fwd(B, S, S, H, d), sdpa(q, k, v, label="d=512"))
 
     for K in (1, 5):  # token_index=0 gives K=1; the training path K=5
         B, S, C, H, St, F = 2, 4096, 320, 8, 77, 1280
@@ -202,10 +311,22 @@ def phase_kernels(source_tpu: dict):
         got = fb.fused_cross_ff(h, bundle, H)
         want = fb.reference_cross_ff(h.float(), bundle, H)
         err = (got.float() - want).abs().max().item()
-        ms = _time_ms(lambda: fb.fused_cross_ff(h, bundle, H), 10)
         plain_ms = _time_ms(lambda: fb.reference_cross_ff(h, bundle, H), 5)
         record("fused_cross_ff", "cuda", "photoverse_tpu_torch/csrc/fused_cross_ff.cu",
-               source_tpu["fused_cross_ff"], err, FUSED_ATOL, ms, plain_ms, [B, S, C, H, St, K, F])
+               source_tpu["fused_cross_ff"], err, FUSED_ATOL, lambda: fb.fused_cross_ff(h, bundle, H), 10,
+               plain_ms, [B, S, C, H, St, K, F],
+               bounds.fused_cross_ff(B, S, C, H, St, K, F))  # no single library call computes it
+        if K == 1:
+            kT, vT, kI, vI = bundle["ctx"]
+            no_id = dict(bundle, ctx=(kT, vT, kI, torch.zeros_like(vI)))
+            e = (fb.fused_cross_ff(h, no_id, H).float() - want).abs().max().item()
+            fault(e > FUSED_ATOL, f"fused_cross_ff identity context dropped: err {e:.6g} (tol {FUSED_ATOL:.6g})")
+            one_head = vT.clone()
+            one_head[:, 3] = 0
+            e = (fb.fused_cross_ff(h, dict(bundle, ctx=(kT, one_head, kI, vI)), H).float()
+                 - want).abs().max().item()
+            fault(e > FUSED_ATOL, f"fused_cross_ff one head's text values dropped: err {e:.6g} "
+                  f"(tol {FUSED_ATOL:.6g})")
 
     # the training kernels on unit-scale inputs: out, dq, dk and dv held at
     # FLASH_RTOL of their own max |.|, lse at LSE_ATOL
@@ -222,11 +343,8 @@ def phase_kernels(source_tpu: dict):
 
     def planted(name, what, got, want):
         err, tol, within = rel_err(got, want)
-        log(f"  planted fault, {name} {what}: err {err:.6g} (tol {tol:.6g}) "
-            f"{'caught' if not within else 'NOT CAUGHT'}")
-        faults_caught.append(not within)
+        fault(not within, f"{name} {what}: err {err:.6g} (tol {tol:.6g})")
 
-    faults_caught = []
     # the train phase's shapes: its UNet grad evals run batch 4 (4 rows, or
     # the face branch's 2 rows doubled by guidance), its face decode 2 rows
     lse_cases = [  # (kernel, B, S, H, d): the UNet's two levels, the VAE
@@ -238,10 +356,10 @@ def phase_kernels(source_tpu: dict):
         got = fs.flash_fwd_lse(q, k, v)
         want = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())
         err, tol, within = rel_err(got, want)
-        ms = _time_ms(lambda: fs.flash_fwd_lse(q, k, v), 10)
         plain_ms = _time_ms(lambda: fs.flash_fwd_lse_plain(q, k, v), 5)
-        record(name, "cuda", "photoverse_tpu_torch/csrc/flash_fwd.cu", source_tpu[name],
-               err, tol, ms, plain_ms, [B, S, S, H, d], ok=within)
+        record(name, "cuda", mma_src if d == 512 else wgmma_src, source_tpu[name],
+               err, tol, lambda: fs.flash_fwd_lse(q, k, v), 10, plain_ms, [B, S, S, H, d],
+               bounds.flash_fwd(B, S, S, H, d, with_lse=True), sdpa(q, k, v), ok=within)
         if name == "flash_sdpa_fwd_lse" and d == 40:
             planted(name, "lse off by one row", (got[0], got[1].roll(1, dims=-1)), want)
         if name == "flash_stream_fwd_lse":
@@ -255,10 +373,16 @@ def phase_kernels(source_tpu: dict):
         got = fs.flash_bwd(q, k, v, out, lse, g)
         want = fs.flash_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, g.float())
         err, tol, within = rel_err(got, want)
-        ms = _time_ms(lambda: fs.flash_bwd(q, k, v, out, lse, g), 10)
         plain_ms = _time_ms(lambda: fs.flash_bwd_plain(q, k, v, out, lse, g), 3)
+        # library yardstick: autograd through one scaled_dot_product_attention call's output
+        qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+        lib_out = nnf.scaled_dot_product_attention(qt, kt, vt)
+        gt = g.transpose(1, 2).contiguous()
         record("flash_bwd", "cuda", "photoverse_tpu_torch/csrc/flash_bwd.cu", source_tpu["flash_bwd"],
-               err, tol, ms, plain_ms, [B, S, S, H, d], ok=within)
+               err, tol, lambda: fs.flash_bwd(q, k, v, out, lse, g), 10, plain_ms, [B, S, S, H, d],
+               bounds.flash_bwd(B, S, H, d),
+               lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True), ok=within)
+        del lib_out
         if d == 40:
             dq, dk, dv = got
             dk, dv = dk.clone(), dv.clone()
@@ -319,7 +443,7 @@ def phase_pipeline():
     t0 = time.perf_counter()
     models = init_params(build_models(
         dtype=torch.bfloat16, use_flash_attention=True, fast_attention_scores=True,
-        fast_norms=True, fused_blocks=True, device="cuda"), seed=0)
+        fast_norms=True, fused_blocks=True), seed=0)
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in models.parameters())
     log(f"pipeline: SD-1.5-width models ({n_params} params, bf16) built in {time.perf_counter() - t0:.1f}s")
@@ -435,9 +559,9 @@ def phase_train():
     t0 = time.perf_counter()
     unet_cfg = UNetConfig(use_flash_attention=True, lora_rank=128, lora_alpha=1.0, lora_dropout=0.1)
     models = init_params(build_models(
-        dtype=torch.bfloat16, unet_config=unet_cfg, vae_config=VAEConfig(use_flash_attention=True),
-        device="cuda"), seed=0)
-    face_net = init_arcface(ArcFaceResNet18(), seed=0).cuda().requires_grad_(False)
+        dtype=torch.bfloat16, unet_config=unet_cfg, vae_config=VAEConfig(use_flash_attention=True)),
+        seed=0)
+    face_net = init_arcface(ArcFaceResNet18(), seed=0).requires_grad_(False)
     cfg = tr.TrainConfig(learning_rate=1e-5, lr_scheduler="constant", gradient_accumulation_steps=2,
                          face_loss_timesteps=10, face_loss_guidance=2.0)
     trainable, frozen, opt = tr.init_train_state(models, cfg)
@@ -683,13 +807,15 @@ def main() -> int:
     ok = all(r["ok"] for r in rows) and pipe_ok and train_ok and all(v > 0 for v in launches.values())
     summary = {"kernels": []}
     for name in TPU_KERNELS:
-        mine = [r for r in rows if r["name"] == name]
+        mine = [r for r in rows if r["name"] == name and "ms" in r]
         first = mine[0]  # the main-path shape
         summary["kernels"].append({
             "name": name, "route": first["route"], "source": first["source"],
             "replaces": first["replaces"], "launches": launches[name],
             "max_abs_err": max(r["max_abs_err"] for r in mine),
-            "ms": first["ms"], "plain_ms": first["plain_ms"],
+            "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
+            "bound_by": first["bound_by"], "library_ms": first["library_ms"],
+            "device_ms": first["device_ms"], "library_device_ms": first["library_device_ms"],
         })
     if not ok:
         log("chip_smoke: a phase failed")

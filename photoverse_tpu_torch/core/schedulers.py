@@ -157,8 +157,8 @@ class DPMSolverMultistep:
     def num_steps(self) -> int:
         return len(self.timesteps)
 
-    def step_inputs(self, device=None) -> Dict[str, torch.Tensor]:
-        """Per-step tables: `t` int64, the coefficients f32."""
+    def step_inputs(self, device="cuda") -> Dict[str, torch.Tensor]:
+        """Per-step tables on `device`: `t` int64, the coefficients f32."""
         out = {"t": torch.as_tensor(np.asarray(self.timesteps, np.int64), device=device)}
         for k in ("a", "b", "c", "eps_coef", "x0_scale"):
             out[k] = torch.as_tensor(np.asarray(getattr(self, k), np.float32), device=device)

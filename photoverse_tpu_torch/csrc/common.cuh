@@ -54,7 +54,9 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], 
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// Sets the dynamic shared-memory limit of `kernel` to `bytes`.
+// Sets the dynamic shared-memory limit of `kernel` to `bytes` on the
+// current device. The attribute is per device, so the launchers call this
+// before every launch rather than once per process.
 template <typename K>
 inline cudaError_t allow_smem(K kernel, int bytes) {
   return cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);

@@ -1,22 +1,23 @@
-// Flash-attention forward for Hopper: one templated kernel serves
-// `ops/flash_sdpa.py:flash_sdpa`, `flash_sdpa_stream` and the forwards of
-// the two autograd Functions, `flash_sdpa_diff` and `flash_sdpa_stream_diff`.
+// Flash-attention forward on mma.sync: one templated kernel that serves
+// `ops/flash_sdpa.py:flash_sdpa_stream` (the VAE's single head of 512) and,
+// with its log-sum-exp output, the forward of `flash_sdpa_stream_diff`.
+// Head dims 40 and 80 (`flash_sdpa`, the forward of `flash_sdpa_diff`) run
+// on the wgmma kernel in flash_fwd_wgmma.cu, which took this template's
+// place for them.
 //
-// Replaces the TPU kernels photoverse_tpu/ops/flash_sdpa.py:_kernel (via
-// flash_sdpa, resident K/V, head dims 40 and 80), _kernel_stream (via
-// flash_sdpa_stream, K/V streamed block by block, head dim 512) and their
-// log-sum-exp variants _kernel_lse (via _flash_fwd_lse) and
-// _kernel_stream_lse (via _flash_stream_fwd_lse). With a non-null `lse`
-// the kernel also writes m + log(l) per query row into a (B, H, Sq) f32
-// array, the row statistic the backward recomputes p from; the TPU
-// kernels' 8- and 128-lane broadcasts of it were a tiling artifact and are
-// gone. The lse variants compute in f32 on the TPU; here q k^T takes the
-// bf16 inputs as they are (the products are exact, f32 accumulation) and
-// p v runs in TF32 (p keeps 11 significant bits), both as below. On Hopper
-// both become the same thing: a block owns BQ query rows of one (b, h)
-// and loops over K/V tiles it stages in shared memory, carrying the
-// online-softmax state (m, l, acc) in registers. That loop takes the place
-// of the TPU's sequential k grid axis and its VMEM scratch.
+// Replaces the TPU kernels photoverse_tpu/ops/flash_sdpa.py:_kernel_stream
+// (via flash_sdpa_stream, K/V streamed block by block, head dim 512) and
+// its log-sum-exp variant _kernel_stream_lse (via _flash_stream_fwd_lse).
+// With a non-null `lse` the kernel also writes m + log(l) per query row
+// into a (B, H, Sq) f32 array, the row statistic the backward recomputes p
+// from; the TPU kernels' 8- and 128-lane broadcasts of it were a tiling
+// artifact and are gone. The lse variants compute in f32 on the TPU; here
+// q k^T takes the bf16 inputs as they are (the products are exact, f32
+// accumulation) and p v runs in TF32 (p keeps 11 significant bits), both as
+// below. A block owns BQ query rows of one (b, h) and loops over K/V tiles
+// it stages in shared memory, carrying the online-softmax state (m, l,
+// acc) in registers. That loop takes the place of the TPU's sequential k
+// grid axis and its VMEM scratch.
 //
 // Math (per query row): s = (q . k) * d^-0.5; m' = max(m, rowmax s);
 // p = exp(s - m'); acc = acc * exp(m - m') + p v; l = l * exp(m - m') +
@@ -25,24 +26,20 @@
 // are exact), p v as TF32 mma.sync (p rounded to TF32, 11 significant bits;
 // v converts exactly). Scores, softmax statistics and acc stay f32, and
 // the output is rounded to bf16 once, so the kernel sits within about half
-// a bf16 ulp of the f32 plain version (measured error in PERF.md). The TPU
-// kernel's fast_scores path rounds p to bf16 instead; TF32 costs the same
-// here, so there is no separate variant.
+// a bf16 ulp of the f32 plain version (measured error in PERF.md).
 //
-// What bounds it on an H100 at the main-path shapes: attention is
-// compute-bound (4*B*H*S^2*d FLOPs: 43 GFLOP for B=2, S=4096, H=8, d=40;
-// 69 GFLOP for the VAE's B=2, S=4096, H=1, d=512), while the bytes are
-// q/k/v/out once (21 MB and 34 MB) plus K/V re-reads per q tile that stay
-// in the 50 MB L2, and the exp per score (0.27 G for the d=40 call). The 8
-// warps split each product into 16-row x 8-column mma tiles; the scores
-// go through shared memory (f32) between the two products so that one
-// layout serves every head dim, including d=512, whose 32 x 512 f32
-// accumulator is spread over all 8 warps (64 registers each). Head dims
-// 40 and 80 are padded to a multiple of 16 with zeros in shared memory.
-// Row strides are 8 mod 16 bf16 elements, so the fragments load without
-// bank conflicts. Tiles: 64 x 64 for d <= 80 (39 KB and 51 KB of shared
-// memory, several blocks per SM), 32 x 64 for d = 512 (172 KB). Staging
-// with cp.async/TMA and wgmma is the next step.
+// What bounds it on an H100 at the main path's shape: operations
+// (4*B*H*S^2*d FLOPs: 68.72 GFLOP for the VAE's B=2, S=4096, H=1, d=512,
+// 0.0695 ms at 989 TFLOP/s) against 34 MB of q/k/v/out, plus K/V re-reads
+// per q tile that stay in the 50 MB L2. The 8 warps split each product
+// into 16-row x 8-column mma tiles; the scores go through shared memory
+// (f32) between the two products so that one layout serves every head
+// dim, including d=512, whose 32 x 512 f32 accumulator is spread over all
+// 8 warps (64 registers each). Row strides are 8 mod 16 bf16 elements, so
+// the fragments load without bank conflicts. Tiles: 32 x 32 for d = 512
+// (172 KB of shared memory). K and V are staged by plain loads between
+// barriers and p v runs at the TF32 rate: a wgmma kernel with TMA-fed
+// tiles for d = 512, as d <= 80 has, is the next step.
 
 #include <math.h>
 
@@ -245,8 +242,6 @@ cudaError_t dispatch(const void* q, const void* k, const void* v, void* out, flo
                      int Sq, int Skv, int H, int D, const Strides& st, cudaStream_t s) {
   if (Sq <= 0 || Skv <= 0 || B <= 0 || H <= 0) return cudaErrorInvalidValue;
   switch (D) {
-    case 40: return launch<40, 64, 64>(q, k, v, out, lse, B, Sq, Skv, H, st, s);
-    case 80: return launch<80, 64, 64>(q, k, v, out, lse, B, Sq, Skv, H, st, s);
     case 512: return launch<512, 32, 32>(q, k, v, out, lse, B, Sq, Skv, H, st, s);
     default: return cudaErrorInvalidValue;
   }

@@ -26,7 +26,12 @@ import torch
 
 from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
 from photoverse_tpu_torch.models.assembly import PhotoVerseModels
-from photoverse_tpu_torch.ops.fused_block import attach_ctx, build_block_bundle, bundle_eligible
+from photoverse_tpu_torch.ops.fused_block import (
+    attach_ctx,
+    build_block_bundle,
+    bundle_eligible,
+    kernel_serves,
+)
 
 __all__ = [
     "encode_condition",
@@ -46,12 +51,18 @@ def precompute_ctx_kv(models: PhotoVerseModels, text_ctx: torch.Tensor, id_ctx: 
 
 def precompute_fused_bundles(models: PhotoVerseModels, kv_cache):
     """Per-layer weight + context bundles for the fused block tail, None for
-    the layers it does not serve (C > fused_block_max_channels)."""
+    the layers it does not serve: C > fused_block_max_channels and, for a
+    model on the card, any sizes the CUDA kernel is not built for. Those
+    layers keep the unfused tail."""
     cfg = models.unet.config
     out = []
     for blk, kv in zip(models.unet.cross_attentions(), kv_cache):
         c = blk.attn2.to_out[0].out_features
-        if bundle_eligible(c, cfg.num_heads, cfg.fused_block_max_channels):
+        served = bundle_eligible(c, cfg.num_heads, cfg.fused_block_max_channels)
+        if served and kv[0].device.type == "cuda":
+            served = kernel_serves(c, cfg.num_heads, kv[0].shape[1], kv[2].shape[1],
+                                   blk.ff.net[2].in_features)
+        if served:
             b = build_block_bundle(blk, cfg.num_heads, dtype=models.dtype)
             out.append(attach_ctx(b, kv, models.dtype))
         else:

@@ -78,9 +78,13 @@ class IRBlock(nn.Module):
 
 
 class ArcFaceResNet18(nn.Module):
-    def __init__(self, config: ArcFaceConfig = ArcFaceConfig()):
+    def __init__(self, config: ArcFaceConfig = ArcFaceConfig(), device="cuda"):
         super().__init__()
         self.config = cfg = config
+        with torch.device(device):
+            self._build(cfg)
+
+    def _build(self, cfg: ArcFaceConfig) -> None:
         self.conv1 = _conv3(1, 64)
         self.bn1 = BatchNormEval(64)
         self.prelu = nn.PReLU()

@@ -74,10 +74,11 @@ def build_models(
     vae_config: Optional[VAEConfig] = None,
     text_config: Optional[CLIPTextConfig] = None,
     vision_config: Optional[CLIPVisionConfig] = None,
-    device="cpu",
+    device="cuda",
 ) -> PhotoVerseModels:
     """Construct the models at SD-1.5 scale (or the given configs) on
-    `device` in `dtype`, in eval mode. The flags build the default configs;
+    `device` (the card unless the caller asks for the CPU) in `dtype`, in
+    eval mode. The flags build the default configs;
     a config passed in is used as it is, as in the JAX package (LoRA comes
     in through `unet_config`)."""
     unet_cfg = unet_config or UNetConfig(

@@ -56,6 +56,9 @@ SIGNATURES = {
     "pv_flash_fwd": [P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, L, L, L, P],
     # as pv_flash_fwd with lse (B, H, Sq) f32 after out
     "pv_flash_fwd_lse": [P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, L, L, L, P],
+    # q, k, v, out, lse or null, B, Sq, Skv, H, D, strides (b, s, h) of q, k,
+    # v, stream
+    "pv_flash_fwd_wgmma": [P] * 5 + [I] * 5 + [L] * 9 + [P],
     # q, k, v, g, lse, delta, dq, dk, dv, B, S, H, D, strides (b, s, h) of
     # q, k, v, g, stream
     "pv_flash_bwd": [P] * 9 + [I] * 4 + [L] * 12 + [P],

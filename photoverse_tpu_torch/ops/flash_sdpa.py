@@ -4,9 +4,10 @@ attention), and their differentiable counterparts `flash_sdpa_diff` and
 `flash_sdpa_stream_diff`. Port of photoverse_tpu/ops/flash_sdpa.py.
 
 Kernels (all in csrc/, launched for CUDA tensors):
-  - flash_sdpa, flash_sdpa_stream: csrc/flash_fwd.cu;
-  - the forward of both autograd Functions: the same kernel with its
-    log-sum-exp output (`flash_fwd_lse`);
+  - flash_sdpa (head dims 40 and 80): csrc/flash_fwd_wgmma.cu, wgmma fed
+    by TMA; flash_sdpa_stream (d=512): csrc/flash_fwd.cu, mma.sync;
+  - the forward of both autograd Functions: the same two kernels with
+    their log-sum-exp output (`flash_fwd_lse`);
   - the backward of flash_sdpa_diff: csrc/flash_bwd.cu (`flash_bwd`).
 The backward of flash_sdpa_stream_diff is `stream_bwd_chunked` in plain
 torch on every device, as the JAX package's is plain XLA.
@@ -40,9 +41,10 @@ __all__ = [
     "BWD_HEAD_DIMS",
 ]
 
-# head dims the CUDA kernels are instantiated for (csrc/flash_fwd.cu,
-# csrc/flash_bwd.cu)
+# head dims the CUDA kernels are instantiated for (csrc/flash_fwd_wgmma.cu
+# and csrc/flash_fwd.cu, csrc/flash_bwd.cu)
 KERNEL_HEAD_DIMS = (40, 80, 512)
+WGMMA_HEAD_DIMS = (40, 80)
 BWD_HEAD_DIMS = (40, 80)
 
 
@@ -140,6 +142,18 @@ def _refuse_grad(name, *ts):
         )
 
 
+def _check_tma_layout(name, t):
+    """TMA's rules for a (B, S, H, d) bf16 tensor read in place: the data
+    16-byte aligned and every stride but d's a multiple of 16 bytes."""
+    if t.stride(-1) != 1:
+        raise ValueError(f"{name} must have unit stride on the head dim")
+    if (t.storage_offset() * t.element_size()) % 16 or any(st % 8 for st in t.stride()[:3]):
+        raise ValueError(f"{name} must be 16-byte aligned with strides that are multiples of "
+                         f"8 elements (got offset {t.storage_offset()}, strides {tuple(t.stride())})")
+    if t.device.type == "cuda" and t.data_ptr() % 16:
+        raise ValueError(f"{name} must be 16-byte aligned")
+
+
 def _check_kernel_inputs(dims, **ts):
     """The kernels read bf16 (B, S, H, d) by strides, bf16 pairs as 32-bit words."""
     for name, t in ts.items():
@@ -166,6 +180,15 @@ def _launch(q, k, v, with_lse: bool):
     lib = _build.load_library()
     dims = (B, Sq, k.shape[1], H, d)
     stream = _build.stream_ptr(q.device)
+    if d in WGMMA_HEAD_DIMS:
+        for name, t in (("q", q), ("k", k), ("v", v)):
+            _check_tma_layout(name, t)
+        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
+        code = lib.pv_flash_fwd_wgmma(
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+            lse.data_ptr() if with_lse else None, *dims, *_strides(q, k, v), stream)
+        _build.check(code, "pv_flash_fwd_wgmma")
+        return (out, lse) if with_lse else out
     if with_lse:
         lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
         code = lib.pv_flash_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
@@ -181,8 +204,7 @@ def _launch(q, k, v, with_lse: bool):
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Self-attention without an (S, S) tensor (UNet head dims 40 and 80);
     returns (B, Sq, H, d). The kernel keeps scores and softmax in f32 and
-    takes the probabilities to TF32, not bf16, for the p v product, so
-    unlike the TPU kernel it has no bf16-probability variant."""
+    takes the probabilities to bf16 for the p v product."""
     _check(q, k, v)
     _refuse_grad("flash_sdpa", q, k, v)
     if q.device.type == "cpu":

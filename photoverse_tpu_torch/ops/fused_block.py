@@ -8,8 +8,10 @@ the attn1 residual), eval mode only:
     h = h + to_out(dual_cross_attn(LN2(h), ctx))      # attn2, fusion = sum
     h = h + ff_out(geglu(ff_proj(LN3(h))))            # GEGLU ff
 
-`build_block_bundle` stages one block's weights per head ((H, C, d) q and
-(H, d, C) out projections, LoRA folded into q), `attach_ctx` adds the
+`build_block_bundle` stages one block's weights as nn.Linear holds them,
+(out, in): wq and wout (C, C) over all heads (LoRA folded into q), wpa and
+wpg (F, C), wo (C, F); that order is the K-major B operand of the kernel's
+wgmma products, read in place by its TMA tensor maps. `attach_ctx` adds the
 layer's hoisted context K/V as (B, H, n, d). `fused_cross_ff` runs the CUDA
 kernel in `csrc/fused_cross_ff.cu` for a CUDA tensor and
 `reference_cross_ff` (f32 math) for a CPU tensor.
@@ -27,32 +29,34 @@ __all__ = [
     "build_block_bundle",
     "attach_ctx",
     "bundle_eligible",
+    "kernel_serves",
+    "check_kernel_shape",
 ]
 
 LN_EPS = 1e-5
+# What the CUDA kernel is built for: the UNet's C=320 blocks with 8 heads,
+# up to 80 text and 8 identity tokens, F a multiple of 64.
+KERNEL_CHANNELS, KERNEL_HEADS, KERNEL_MAX_TEXT, KERNEL_MAX_ID, KERNEL_F_MULTIPLE = 320, 8, 80, 8, 64
 _F32_KEYS = ("ln2g", "ln2b", "bout", "ln3g", "ln3b", "bpa", "bpg", "bo")
 _BF16_KEYS = ("wq", "wout", "wpa", "wpg", "wo")
 
 
 def bundle_eligible(channels: int, num_heads: int, max_channels: int = 320) -> bool:
     """The fused path serves the C <= 320 blocks (the S=4096 level of the
-    SD-1.5 UNet), as in the JAX package."""
+    SD-1.5 UNet), as in the JAX package. On the card the CUDA kernel narrows
+    this further: see `kernel_serves`."""
     return channels <= max_channels and channels % num_heads == 0
 
 
 @torch.no_grad()
 def build_block_bundle(block, num_heads: int, dtype: torch.dtype = torch.bfloat16) -> dict:
-    """Per-head weight bundle from a port `BasicTransformerBlock` (eval:
-    LoRA on to_q folded in, no dropout). Pure reshapes, built once per
-    denoise call."""
+    """Weight bundle from a port `BasicTransformerBlock` (eval: LoRA on
+    to_q folded in, no dropout), every matrix (out, in) as the modules hold
+    it. Built once per denoise call."""
     a2 = block.attn2
-    wq = a2.to_q.effective_weight().t()  # (C, C) as x @ wq
-    C = wq.shape[0]
-    H = num_heads
-    d = C // H
-    ff_k = block.ff.net[0].proj.weight.t()  # (C, 8C)
+    ff_w = block.ff.net[0].proj.weight  # (8C, C): a's rows, then the gate's
     ff_b = block.ff.net[0].proj.bias
-    F = ff_k.shape[1] // 2
+    F = ff_w.shape[0] // 2
     f32 = torch.float32
 
     def w(x):
@@ -63,13 +67,13 @@ def build_block_bundle(block, num_heads: int, dtype: torch.dtype = torch.bfloat1
 
     return {
         "ln2g": vec(block.norm2.weight), "ln2b": vec(block.norm2.bias),
-        "wq": w(wq.reshape(C, H, d).permute(1, 0, 2)),
-        "wout": w(a2.to_out[0].weight.t().reshape(H, d, C)),
+        "wq": w(a2.to_q.effective_weight()),
+        "wout": w(a2.to_out[0].weight),
         "bout": vec(a2.to_out[0].bias),
         "ln3g": vec(block.norm3.weight), "ln3b": vec(block.norm3.bias),
-        "wpa": w(ff_k[:, :F]), "wpg": w(ff_k[:, F:]),
+        "wpa": w(ff_w[:F]), "wpg": w(ff_w[F:]),
         "bpa": vec(ff_b[:F]), "bpg": vec(ff_b[F:]),
-        "wo": w(block.ff.net[2].weight.t()), "bo": vec(block.ff.net[2].bias),
+        "wo": w(block.ff.net[2].weight), "bo": vec(block.ff.net[2].bias),
     }
 
 
@@ -95,16 +99,33 @@ def reference_cross_ff(h: torch.Tensor, bundle: dict, num_heads: int) -> torch.T
         return xc * torch.rsqrt(var + LN_EPS) * g + b
 
     h2 = ln(x, f["ln2g"], f["ln2b"])
-    q = torch.einsum("bsc,hcd->bhsd", h2, f["wq"]) * (d**-0.5)
+    q = (h2 @ f["wq"].t()).reshape(B, S, num_heads, d).transpose(1, 2) * (d**-0.5)
     ot = torch.einsum("bhst,bhtd->bhsd", torch.softmax(torch.einsum("bhsd,bhtd->bhst", q, kT), -1), vT)
     oi = torch.einsum("bhst,bhtd->bhsd", torch.softmax(torch.einsum("bhsd,bhtd->bhst", q, kI), -1), vI)
-    x = x + torch.einsum("bhsd,hdc->bsc", ot + oi, f["wout"]) + f["bout"]
+    x = x + (ot + oi).transpose(1, 2).reshape(B, S, C) @ f["wout"].t() + f["bout"]
     h3 = ln(x, f["ln3g"], f["ln3b"])
-    a = h3 @ f["wpa"] + f["bpa"]
-    g = h3 @ f["wpg"] + f["bpg"]
+    a = h3 @ f["wpa"].t() + f["bpa"]
+    g = h3 @ f["wpg"].t() + f["bpg"]
     ff = a * torch.nn.functional.gelu(g)
-    x = x + ff @ f["wo"] + f["bo"]
+    x = x + ff @ f["wo"].t() + f["bo"]
     return x.to(h.dtype)
+
+
+def kernel_serves(C: int, H: int, St: int, K: int, F: int) -> bool:
+    """Whether the CUDA kernel is built for these sizes. The layer that
+    routes blocks to the fused tail asks this for a model on the card; a
+    block it does not serve keeps the unfused tail."""
+    return ((C, H) == (KERNEL_CHANNELS, KERNEL_HEADS) and 0 < St <= KERNEL_MAX_TEXT
+            and 0 < K <= KERNEL_MAX_ID and F > 0 and F % KERNEL_F_MULTIPLE == 0)
+
+
+def check_kernel_shape(C: int, H: int, St: int, K: int, F: int) -> None:
+    """Raise unless the CUDA kernel is built for these sizes."""
+    if not kernel_serves(C, H, St, K, F):
+        raise ValueError(
+            f"the CUDA kernel is built for C={KERNEL_CHANNELS}, {KERNEL_HEADS} heads, at most "
+            f"{KERNEL_MAX_TEXT} text and {KERNEL_MAX_ID} identity tokens and F a multiple of "
+            f"{KERNEL_F_MULTIPLE}; got C={C}, H={H}, St={St}, K={K}, F={F}")
 
 
 def fused_cross_ff(h: torch.Tensor, bundle: dict, num_heads: int) -> torch.Tensor:
@@ -126,21 +147,20 @@ def fused_cross_ff(h: torch.Tensor, bundle: dict, num_heads: int) -> torch.Tenso
     H = num_heads
     kT, vT, kI, vI = bundle["ctx"]
     St, K = kT.shape[2], kI.shape[2]
-    F = bundle["wpa"].shape[1]
-    d = C // H
+    F = bundle["wpa"].shape[0]
     if C % H:
         raise ValueError(f"channels {C} not divisible by {H} heads")
-    if C % 8 or d % 8 or F % 8:  # the kernel copies rows 8 bf16 (16 bytes) at a time
-        raise ValueError(f"the CUDA kernel needs C, C/H and F divisible by 8, got {C}, {d}, {F}")
+    d = C // H
+    check_kernel_shape(C, H, St, K, F)
     want = {
         "h": (h, (B, S, C), torch.bfloat16),
         "kT": (kT, (B, H, St, d), torch.bfloat16), "vT": (vT, (B, H, St, d), torch.bfloat16),
         "kI": (kI, (B, H, K, d), torch.bfloat16), "vI": (vI, (B, H, K, d), torch.bfloat16),
-        "wq": (bundle["wq"], (H, C, d), torch.bfloat16),
-        "wout": (bundle["wout"], (H, d, C), torch.bfloat16),
-        "wpa": (bundle["wpa"], (C, F), torch.bfloat16),
-        "wpg": (bundle["wpg"], (C, F), torch.bfloat16),
-        "wo": (bundle["wo"], (F, C), torch.bfloat16),
+        "wq": (bundle["wq"], (C, C), torch.bfloat16),
+        "wout": (bundle["wout"], (C, C), torch.bfloat16),
+        "wpa": (bundle["wpa"], (F, C), torch.bfloat16),
+        "wpg": (bundle["wpg"], (F, C), torch.bfloat16),
+        "wo": (bundle["wo"], (C, F), torch.bfloat16),
     }
     for k in ("ln2g", "ln2b", "bout", "ln3g", "ln3b", "bo"):
         want[k] = (bundle[k], (C,), torch.float32)

@@ -1,0 +1,226 @@
+"""Times and checks the port's wgmma kernels on one H100.
+
+    python3 scripts/torch_kernel_times.py [flash] [fused] [--quick] [--earlier DIR]
+
+For `flash_sdpa` (head dims 40 and 80): error, CUDA-event, device and host
+time at small, ragged and main-path shapes, beside one
+`scaled_dot_product_attention` call on the same inputs. For
+`fused_cross_ff`: the same at K = 1 and 5. `--earlier DIR` also times `flash_sdpa` and `fused_cross_ff` of another checkout of
+this repository (an earlier commit unpacked with `git archive`) at the
+main-path shapes, on the same card in the same run. Each family runs in a
+child process with a time limit, so a kernel that hangs ends the child and
+not the run. Prints the card's name and power limit first; `--quick` checks
+each shape once and times nothing.
+"""
+
+from __future__ import annotations
+
+import importlib.util
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+# the tree under test: the current directory for the `earlier` child, else this file's
+sys.path.insert(0, os.getcwd() if "earlier" in sys.argv[1:3] else ROOT)
+
+# this tree's chip_smoke.py for its limits and timers (it imports torch lazily)
+_spec = importlib.util.spec_from_file_location("chip_smoke_here", os.path.join(ROOT, "chip_smoke.py"))
+cs = importlib.util.module_from_spec(_spec)
+_spec.loader.exec_module(cs)
+
+FLASH_RTOL, LSE_ATOL, FUSED_ATOL = cs.FLASH_RTOL, cs.LSE_ATOL, cs.FUSED_ATOL
+time_ms = cs._time_ms
+
+
+def device_ms(fn, iters):
+    return cs._fmt_ms(cs._device_ms(fn, iters))
+
+
+def log(msg):
+    print(msg, flush=True)
+
+
+def host_us(fn, iters=200):
+    """Host time of one call (enqueue only), microseconds."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    for _ in range(iters):
+        fn()
+    dt = time.perf_counter() - t
+    torch.cuda.synchronize()
+    return dt / iters * 1e6
+
+
+def child_flash(quick: bool):
+    import torch
+    import torch.nn.functional as F
+
+    from photoverse_tpu_torch.ops import bounds
+    from photoverse_tpu_torch.ops import flash_sdpa as fs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    small = [(1, 100, 100, 2, 40), (2, 64, 200, 3, 80), (1, 1000, 4000, 2, 40), (4, 300, 77, 2, 80)]
+    main = [(2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (2, 1024, 4096, 8, 40),
+            (4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80)]
+    for B, Sq, Skv, H, d in small + main:
+        scale = 0.3 if (B, Sq, Skv, H, d) not in main[3:] else 1.0
+        q = (scale * torch.randn(B, Sq, H, d, generator=gen, device=dev)).bfloat16()
+        k = (scale * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
+        v = (scale * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
+        want, want_lse = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())
+        tol = FLASH_RTOL * want.abs().max().item()
+        is_main = (B, Sq, Skv, H, d) in main
+        ops, byts = bounds.flash_fwd(B, Sq, Skv, H, d)
+        log(f"flash {(B, Sq, Skv, H, d)} scale {scale}: tol {tol:.4g}, bound "
+            f"{bounds.bound_ms(ops, byts):.4f} ms")
+        if is_main and not quick:
+            qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+            log(f"  scaled_dot_product_attention: "
+                f"{time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20):.4f} ms, device "
+                f"{device_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt), 20)} ms")
+        got = fs.flash_sdpa(q, k, v)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        line = f"  err {err:.4g} ({err / tol:.3f} of tol)"
+        if Sq == Skv:
+            out2, lse = fs.flash_fwd_lse(q, k, v)
+            lerr = (lse - want_lse).abs().max().item()
+            same = torch.equal(out2, got)
+            line += f" lse err {lerr:.3g} ({lerr / LSE_ATOL:.3f} of tol) out same {same}"
+        again = fs.flash_sdpa(q, k, v)
+        line += f" repeat identical {torch.equal(again, got)}"
+        if is_main and not quick:
+            line += (f" {time_ms(lambda: fs.flash_sdpa(q, k, v), 20):.4f} ms, device "
+                     f"{device_ms(lambda: fs.flash_sdpa(q, k, v), 20)} ms")
+        log(line + ("" if err <= tol else " FAIL"))
+        if is_main and not quick:
+            log(f"  host time per call: {host_us(lambda: fs.flash_sdpa(q, k, v)):.1f} us "
+                f"(three cached tensor maps)")
+
+
+def child_fused(quick: bool):
+    import torch
+
+    from photoverse_tpu_torch.ops import bounds
+    from photoverse_tpu_torch.ops import fused_block as fb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    bf, f32 = torch.bfloat16, torch.float32
+
+    def rn(*s, scale=1.0, dtype=bf):
+        return (torch.randn(*s, generator=gen, device=dev) * scale).to(dtype)
+
+    C, H, F = 320, 8, 1280
+    d = C // H
+    cases = [(1, 64, 77, 1), (2, 100, 77, 5), (1, 200, 7, 1), (2, 4096, 77, 1), (2, 4096, 77, 5), (4, 4096, 77, 1)]
+    for B, S, St, K in cases:
+        bundle = {
+            "ln2g": 1 + rn(C, scale=0.1, dtype=f32), "ln2b": rn(C, scale=0.1, dtype=f32),
+            "wq": rn(C, C, scale=C**-0.5), "wout": rn(C, C, scale=C**-0.5),
+            "bout": rn(C, scale=0.1, dtype=f32),
+            "ln3g": 1 + rn(C, scale=0.1, dtype=f32), "ln3b": rn(C, scale=0.1, dtype=f32),
+            "wpa": rn(F, C, scale=C**-0.5), "wpg": rn(F, C, scale=C**-0.5),
+            "bpa": rn(F, scale=0.1, dtype=f32), "bpg": rn(F, scale=0.1, dtype=f32),
+            "wo": rn(C, F, scale=F**-0.5), "bo": rn(C, scale=0.1, dtype=f32),
+            "ctx": (rn(B, H, St, d), rn(B, H, St, d), rn(B, H, K, d), rn(B, H, K, d)),
+        }
+        h = rn(B, S, C)
+        want = fb.reference_cross_ff(h.float(), bundle, H)
+        ops, byts = bounds.fused_cross_ff(B, S, C, H, St, K, F)
+        log(f"fused {(B, S, St, K)}: bound {bounds.bound_ms(ops, byts):.4f} ms")
+        got = fb.fused_cross_ff(h, bundle, H)
+        torch.cuda.synchronize()
+        diff = (got.float() - want).abs()
+        err = diff.max().item()
+        line = (f"  err {err:.4g} ({err / FUSED_ATOL:.3f} of tol) mean err "
+                f"{diff.mean().item():.3g} finite {bool(torch.isfinite(got).all())} repeat identical "
+                f"{torch.equal(fb.fused_cross_ff(h, bundle, H), got)}")
+        if S >= 4096 and not quick:
+            line += (f" {time_ms(lambda: fb.fused_cross_ff(h, bundle, H), 20):.4f} ms, device "
+                     f"{device_ms(lambda: fb.fused_cross_ff(h, bundle, H), 20)} ms")
+            line += f" host {host_us(lambda: fb.fused_cross_ff(h, bundle, H)):.1f} us"
+        log(line + ("" if err <= FUSED_ATOL else " FAIL"))
+        if S >= 4096 and not quick:
+            log(f"  plain version: {time_ms(lambda: fb.reference_cross_ff(h, bundle, H), 5):.4f} ms")
+
+
+def child_earlier(quick: bool):
+    """`flash_sdpa` and `fused_cross_ff` of the checkout in the current
+    directory (its own chip_smoke.py builds the fused tail's inputs in its
+    own layout), CUDA-event, device and host time at the main-path shapes."""
+    import torch
+
+    import chip_smoke as theirs  # the other checkout's
+    from photoverse_tpu_torch.ops import flash_sdpa as fs
+    from photoverse_tpu_torch.ops import fused_block as fb
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    log(f"earlier tree {os.getcwd()}")
+    for B, S, H, d in ((2, 4096, 8, 40), (2, 1024, 8, 80), (4, 4096, 8, 40), (4, 1024, 8, 80)):
+        q, k, v = ((0.3 * torch.randn(B, S, H, d, generator=gen, device=dev)).bfloat16() for _ in range(3))
+        log(f"  flash_sdpa {(B, S, S, H, d)}: {time_ms(lambda: fs.flash_sdpa(q, k, v), 20):.4f} ms, device "
+            f"{device_ms(lambda: fs.flash_sdpa(q, k, v), 20)} ms, host "
+            f"{host_us(lambda: fs.flash_sdpa(q, k, v)):.1f} us")
+    for K in (1, 5):
+        h, bundle = theirs._fused_inputs(gen, 2, 4096, 320, 8, 77, K, 1280, dev)
+        log(f"  fused_cross_ff (2, 4096, 77, {K}): {time_ms(lambda: fb.fused_cross_ff(h, bundle, 8), 20):.4f} ms, "
+            f"device {device_ms(lambda: fb.fused_cross_ff(h, bundle, 8), 20)} ms, host "
+            f"{host_us(lambda: fb.fused_cross_ff(h, bundle, 8)):.1f} us")
+
+
+def main():
+    args = sys.argv[1:]
+    quick = "--quick" in args
+    if "--child" in args:
+        import torch
+
+        torch.backends.cuda.matmul.allow_tf32 = False
+        {"flash": child_flash, "fused": child_fused, "earlier": child_earlier}[
+            args[args.index("--child") + 1]](quick)
+        return 0
+    import torch
+
+    if not torch.cuda.is_available():
+        print("needs an NVIDIA GPU", file=sys.stderr)
+        return 2
+    log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+                       capture_output=True, text=True).stdout.strip())
+    log(f"python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
+    from photoverse_tpu_torch.ops import _build
+
+    t0 = time.perf_counter()
+    _, out = _build.build_library()
+    log(f"build {time.perf_counter() - t0:.1f}s")
+    name, keep = "", False
+    for line in out.splitlines():  # per wgmma kernel: template arguments, spills, registers
+        if "Compiling entry" in line:
+            keep = "wgmma" in line or "fused" in line
+            name = line[line.find("kernel"):][:48]
+        elif keep and ("registers" in line or "spill" in line):
+            log(f"  {name}: {line.strip()}")
+        elif "error" in line:
+            log(f"  {line.strip()}")
+    rc = 0
+    families = [(a, None) for a in args if a in ("flash", "fused")] or [("flash", None), ("fused", None)]
+    if "--earlier" in args:
+        families.append(("earlier", args[args.index("--earlier") + 1]))
+    for fam, cwd in families:
+        cmd = [sys.executable, os.path.abspath(__file__), "--child", fam] + (["--quick"] if quick else [])
+        try:
+            rc |= subprocess.run(cmd, timeout=240, cwd=cwd).returncode
+        except subprocess.TimeoutExpired:
+            log(f"{fam}: child timed out (a kernel hung?)")
+            rc |= 1
+    return rc
+
+
+if __name__ == "__main__":
+    sys.exit(main())

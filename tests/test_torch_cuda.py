@@ -4,8 +4,8 @@ on the card with `python -m pytest --noconftest tests/test_torch_cuda.py -q`
 (tests/conftest.py imports jax, which the card's machine does not have).
 
 Inputs are bf16; the plain versions compute in f32 from the same bf16
-tensors. Both kernels accumulate in f32 (tensor-core products with bf16 or
-TF32 operands) and round only their bf16 output. Tolerances: flash 2^-6 of
+tensors. The kernels accumulate in f32 (tensor-core products with bf16,
+bf16-pair or TF32 operands) and round only their bf16 output. Tolerances: flash 2^-6 of
 the largest |out| (2-4 bf16 ulps of it; 0.3*randn inputs give a near-uniform
 softmax and small outputs, so an absolute limit would hide a dropped key
 tile); the fused tail 1/32 on unit-scale activations (|out| < 8, one bf16
@@ -59,6 +59,37 @@ def test_flash_kernel_matches_plain(gen, B, Sq, Skv, H, d):
     assert _flash_close(got, want)
 
 
+@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("B,Sq,Skv,H", [
+    (1, 1000, 4000, 2),   # neither length a multiple of the 64/128-row and 64-key tiles
+    (4, 130, 77, 3),      # keys shorter than one tile, batch 4
+    (1, 63, 65, 1),       # one ragged tile each way
+    (4, 256, 256, 8),     # whole tiles, equal lengths
+])
+def test_wgmma_flash_kernel_ragged_lengths(gen, d, B, Sq, Skv, H):
+    # with and without the lse output, against the plain version
+    q = _r(gen, B, Sq, H, d, scale=0.3)
+    k, v = _r(gen, B, Skv, H, d, scale=0.3), _r(gen, B, Skv, H, d, scale=0.3)
+    want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
+    got = fs.flash_sdpa(q, k, v)
+    assert _flash_close(got, want)
+    assert torch.equal(fs.flash_sdpa(q, k, v), got)  # repeat calls bit-identical
+    if Sq == Skv:
+        out, lse = fs.flash_fwd_lse(q, k, v)
+        want_lse = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())[1]
+        assert torch.equal(out, got)
+        assert (lse - want_lse).abs().max().item() <= 2**-10
+
+
+def test_flash_kernel_refuses_layouts_tma_cannot_read(gen):
+    q = _r(gen, 1, 64, 2, 40)
+    odd = torch.zeros(1, 64, 2, 44, device="cuda", dtype=torch.bfloat16)[..., :40]  # 88-byte head stride
+    with pytest.raises(ValueError, match="aligned"):
+        fs.flash_sdpa(odd, q, q)
+    with pytest.raises(ValueError, match="aligned"):
+        fs.flash_sdpa(q, q, odd)
+
+
 def test_flash_kernel_reads_strided_inputs(gen):
     qkv = _r(gen, 2, 128, 3, 4, 40, scale=0.3)  # a packed (B, S, 3, H, d) projection
     q, k, v = qkv.unbind(dim=2)
@@ -86,26 +117,71 @@ def test_kernel_rejects_other_dtypes_and_head_dims(gen):
         fs.flash_sdpa(q, q, q)
 
 
-@pytest.mark.parametrize("S,K,St", [(100, 1, 77), (64, 5, 77), (64, 1, 7)])
-def test_fused_kernel_matches_plain(gen, S, K, St):
-    B, C, H, F = 2, 320, 8, 1280
+def _fused_case(gen, B, S, St, K):
+    C, H, F = 320, 8, 1280
     d = C // H
-    f32 = torch.float32
     vec = lambda n, base=0.0: base + 0.1 * torch.randn(n, generator=gen, device="cuda")  # noqa: E731
-    bundle = {
-        "ln2g": vec(C, 1.0), "ln2b": vec(C), "wq": _r(gen, H, C, d, scale=C**-0.5),
-        "wout": _r(gen, H, d, C, scale=C**-0.5), "bout": vec(C),
+    bundle = {  # every matrix (out, in), as build_block_bundle stages them
+        "ln2g": vec(C, 1.0), "ln2b": vec(C), "wq": _r(gen, C, C, scale=C**-0.5),
+        "wout": _r(gen, C, C, scale=C**-0.5), "bout": vec(C),
         "ln3g": vec(C, 1.0), "ln3b": vec(C),
-        "wpa": _r(gen, C, F, scale=C**-0.5), "wpg": _r(gen, C, F, scale=C**-0.5),
-        "bpa": vec(F), "bpg": vec(F), "wo": _r(gen, F, C, scale=F**-0.5), "bo": vec(C),
+        "wpa": _r(gen, F, C, scale=C**-0.5), "wpg": _r(gen, F, C, scale=C**-0.5),
+        "bpa": vec(F), "bpg": vec(F), "wo": _r(gen, C, F, scale=F**-0.5), "bo": vec(C),
         "ctx": tuple(_r(gen, B, H, n, d) for n in (St, St, K, K)),
     }
-    assert all(bundle[k].dtype == f32 for k in ("ln2g", "bo", "bpa"))
-    h = _r(gen, B, S, C)
+    return _r(gen, B, S, C), bundle, H
+
+
+@pytest.mark.parametrize("B,S,K,St", [(2, 100, 1, 77), (1, 64, 5, 77), (2, 64, 1, 7), (1, 1000, 5, 77),
+                                       (4, 130, 8, 80)])
+def test_fused_kernel_matches_plain(gen, B, S, K, St):
+    # S that is no multiple of the 64-token block, K = 1 and 5 (and the
+    # kernel's limits 8 and 80), a short text context
+    h, bundle, H = _fused_case(gen, B, S, St, K)
+    assert all(bundle[k].dtype == torch.float32 for k in ("ln2g", "bo", "bpa"))
+    before = _build.launch_counts["fused_cross_ff"]
     got = fb.fused_cross_ff(h, bundle, H)
     torch.cuda.synchronize()
+    assert _build.launch_counts["fused_cross_ff"] == before + 1
     want = fb.reference_cross_ff(h.float(), bundle, H)
     assert (got.float() - want).abs().max().item() <= 1 / 32
+    assert torch.equal(fb.fused_cross_ff(h, bundle, H), got)  # repeat calls bit-identical
+
+
+def test_fused_kernel_refuses_other_widths(gen):
+    h, bundle, H = _fused_case(gen, 1, 64, 77, 1)
+    with pytest.raises(ValueError, match="built for"):
+        fb.fused_cross_ff(h, dict(bundle, ctx=tuple(_r(gen, 1, H, n, 40) for n in (81, 81, 1, 1))), H)
+    with pytest.raises(ValueError, match="built for"):
+        fb.fused_cross_ff(h, dict(bundle, ctx=tuple(_r(gen, 1, H, n, 40) for n in (77, 77, 9, 9))), H)
+    with pytest.raises(ValueError, match="shape"):
+        fb.fused_cross_ff(h, dict(bundle, wq=bundle["wq"].reshape(8, 320, 40)), H)
+
+
+def test_fused_blocks_at_a_width_the_kernel_lacks_keep_the_unfused_tail(gen):
+    # a narrow UNet with fused_blocks on the card: no layer is routed to the
+    # CUDA kernel (built for C = 320, 8 heads), and a step runs without it
+    import types
+
+    from photoverse_tpu_torch.engine import inference
+    from photoverse_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+
+    cfg = UNetConfig(block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=24,
+                     num_heads=4, norm_num_groups=8, fused_blocks=True)
+    with torch.device("cuda"):
+        net = UNet2DCondition(cfg).to(torch.bfloat16).eval().requires_grad_(False)
+    models = types.SimpleNamespace(unet=net, dtype=torch.bfloat16)
+    text, ident = _r(gen, 2, 7, 24), _r(gen, 2, 1, 24)
+    kv = inference.precompute_ctx_kv(models, text, ident)
+    bundles = inference.precompute_fused_bundles(models, kv)
+    assert all(b is None for b in bundles)
+    before = _build.launch_counts["fused_cross_ff"]
+    with torch.no_grad():
+        out = net(_r(gen, 2, 8, 8, 4), torch.tensor([10, 10], device="cuda"), text, ident,
+                  ctx_kv=kv, fused_bundles=bundles)
+    out = out[0] if isinstance(out, tuple) else out
+    assert torch.isfinite(out.float()).all()
+    assert _build.launch_counts["fused_cross_ff"] == before
 
 
 @pytest.mark.parametrize("B,S,H,d", [(1, 100, 2, 40), (2, 256, 2, 80), (1, 200, 1, 512)])
@@ -187,14 +263,8 @@ def test_no_grad_kernels_refuse_grad(gen):
 
 
 def test_fused_kernel_refuses_grad(gen):
-    B, S, C, H, St, K, F = 1, 64, 320, 8, 7, 1, 1280
-    d = C // H
-    bundle = {k: torch.zeros(n, device="cuda") for k, n in
-              (("ln2g", C), ("ln2b", C), ("bout", C), ("ln3g", C), ("ln3b", C), ("bo", C),
-               ("bpa", F), ("bpg", F))}
-    bundle.update(wq=_r(gen, H, C, d), wout=_r(gen, H, d, C), wpa=_r(gen, C, F), wpg=_r(gen, C, F),
-                  wo=_r(gen, F, C), ctx=tuple(_r(gen, B, H, n, d) for n in (St, St, K, K)))
-    h = _r(gen, B, S, C).requires_grad_()
+    h, bundle, H = _fused_case(gen, 1, 64, 7, 1)
+    h.requires_grad_()
     with pytest.raises(RuntimeError, match="no backward"):
         fb.fused_cross_ff(h, bundle, H)
     with torch.no_grad():

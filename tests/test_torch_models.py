@@ -227,6 +227,7 @@ def test_init_params_follows_the_numpy_fill_rules(pair):
         unet_config=port.unet.config, vae_config=port.vae.config,
         text_config=port.text_encoder.config, vision_config=port.vision_encoder.config,
         image_encoder_layers_idx=modules.image_encoder_layers_idx,
+        device="cpu",
     ), seed=3)
     sd = {k: v.clone() for k, v in models.unet.state_dict().items()}
     assert torch.all(sd["conv_norm_out.weight"] == 1) and torch.all(sd["conv_norm_out.bias"] == 0)

@@ -108,6 +108,15 @@ def _rand_bundle(rng, B, C, H, St, K):
     return weights, ctx
 
 
+def _torch_bundle(w):
+    """The JAX bundle's weights ((H, C, d) q, (H, d, C) out, (in, out) ff) in
+    the port's layout: every matrix (out, in), q and out over all heads."""
+    C = w["wq"].shape[1]
+    moved = {"wq": w["wq"].transpose(0, 2, 1).reshape(C, C), "wout": w["wout"].reshape(C, C).T,
+             "wpa": w["wpa"].T, "wpg": w["wpg"].T, "wo": w["wo"].T}
+    return {k: T(np.ascontiguousarray(moved.get(k, v))) for k, v in w.items()}
+
+
 @pytest.mark.parametrize("St,K", [(7, 1), (7, 5), (77, 1), (77, 5)])
 def test_fused_cross_ff_matches_jax(St, K):
     # atol 1e-4 (as the JAX package's own kernel test). The JAX bundle pads
@@ -121,10 +130,11 @@ def test_fused_cross_ff_matches_jax(St, K):
     jb = jfused.attach_ctx(jb, tuple(map(jnp.asarray, ctx)), jnp.float32)
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jfused.fused_cross_ff(jnp.asarray(h), jb, H, q_tile=32))
-    tb = tfused.attach_ctx({k: T(v) for k, v in w.items()}, tuple(map(T, ctx)), torch.float32)
+    tb = tfused.attach_ctx(_torch_bundle(w), tuple(map(T, ctx)), torch.float32)
     got = tfused.fused_cross_ff(T(h), tb, H).numpy()
     np.testing.assert_allclose(got, want, atol=1e-4)
     assert tb["ctx"][2].shape == (B, H, K, C // H)
+    assert tb["wq"].shape == (C, C) and tb["wpa"].shape == (4 * C, C) and tb["wo"].shape == (C, 4 * C)
 
 
 @pytest.mark.parametrize("S,d", [(256, 40), (128, 80)])
@@ -216,7 +226,7 @@ def test_no_grad_kernels_refuse_inputs_that_require_grad():
         with torch.no_grad():
             fn(q, q, q)
     w, ctx = _rand_bundle(np.random.RandomState(0), 1, 16, 2, 7, 1)
-    bundle = tfused.attach_ctx({k: T(x) for k, x in w.items()}, tuple(map(T, ctx)), torch.float32)
+    bundle = tfused.attach_ctx(_torch_bundle(w), tuple(map(T, ctx)), torch.float32)
     h = torch.zeros(1, 8, 16, requires_grad=True)
     with pytest.raises(RuntimeError, match="no backward"):
         tfused.fused_cross_ff(h, bundle, 2)
@@ -236,7 +246,7 @@ def test_wrappers_count_no_launch_on_cpu():
     tflash.flash_bwd(q, k, v, out, lse, q)
     w, ctx = _rand_bundle(np.random.RandomState(0), 1, 16, 2, 7, 1)
     tfused.fused_cross_ff(torch.zeros(1, 8, 16), tfused.attach_ctx(
-        {k: T(x) for k, x in w.items()}, tuple(map(T, ctx)), torch.float32), 2)
+        _torch_bundle(w), tuple(map(T, ctx)), torch.float32), 2)
     assert sum(_build.launch_counts.values()) == 0
 
 
@@ -256,3 +266,92 @@ def test_wrappers_reject_devices_without_a_kernel():
         tflash.flash_sdpa(q, q, q)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tfused.fused_cross_ff(torch.zeros(1, 8, 16, device="meta"), {}, 2)
+
+
+@pytest.mark.parametrize("what", ["offset", "seq_stride", "head_stride", "inner_stride"])
+def test_flash_wrapper_refuses_layouts_tma_cannot_read(what):
+    # the wgmma forward reads q, k, v in place through TMA tensor maps: the
+    # data 16-byte aligned, every stride but the head dim's a multiple of 8
+    # elements (16 bytes), unit stride on the head dim
+    base = torch.zeros(2, 16, 2, 48, dtype=torch.bfloat16)
+    bad = {
+        "offset": base[..., 4:44],                        # 8-byte offset
+        "seq_stride": torch.zeros(2, 16, 2 * 40 + 4, dtype=torch.bfloat16)[..., :80].reshape(2, 16, 2, 40),
+        "head_stride": torch.zeros(2, 16, 2, 44, dtype=torch.bfloat16)[..., :40],
+        "inner_stride": torch.zeros(2, 16, 2, 80, dtype=torch.bfloat16)[..., ::2],
+    }[what]
+    assert bad.shape == (2, 16, 2, 40)
+    with pytest.raises(ValueError, match="aligned|unit stride"):
+        tflash._check_tma_layout("q", bad)
+    tflash._check_tma_layout("q", base[..., :40])  # 96-byte head stride: fine
+    packed = torch.zeros(2, 16, 3, 2, 40, dtype=torch.bfloat16)  # a packed qkv projection
+    for t in packed.unbind(dim=2):
+        tflash._check_tma_layout("q", t)
+
+
+def test_wgmma_kernel_serves_the_unet_head_dims_by_default():
+    assert tflash.WGMMA_HEAD_DIMS == (40, 80)
+    assert set(tflash.WGMMA_HEAD_DIMS) < set(tflash.KERNEL_HEAD_DIMS)
+    # one configuration of each wgmma kernel is built: the C entry points
+    # take no selector after the shapes and strides, only the stream
+    assert _build.SIGNATURES["pv_flash_fwd_wgmma"][-2:] == [_build.L, _build.P]
+    assert _build.SIGNATURES["pv_fused_cross_ff"][-8:] == [_build.I] * 7 + [_build.P]
+
+
+@pytest.mark.parametrize("change,match", [
+    ({"C": 64, "H": 8}, "built for"), ({"St": 81}, "built for"), ({"K": 9}, "built for"),
+])
+def test_fused_wrapper_refuses_shapes_the_kernel_is_not_built_for(change, match):
+    # checked before any launch, so a meta tensor (no data) reaches the check
+    dims = {"B": 1, "S": 8, "C": 320, "H": 8, "St": 77, "K": 1, **change}
+    B, S, C, H, St, K = (dims[k] for k in ("B", "S", "C", "H", "St", "K"))
+    d, F = C // H, 4 * C
+    z = lambda *s: torch.zeros(*s, device="meta", dtype=torch.bfloat16)  # noqa: E731
+    bundle = {"wq": z(C, C), "wout": z(C, C), "wpa": z(F, C), "wpg": z(F, C), "wo": z(C, F),
+              "ctx": (z(B, H, St, d), z(B, H, St, d), z(B, H, K, d), z(B, H, K, d))}
+    h = z(B, S, C)
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tfused.fused_cross_ff(h, bundle, H)
+    with pytest.raises(ValueError, match=match):
+        tfused.check_kernel_shape(C, H, St, K, F)
+    tfused.check_kernel_shape(320, 8, 77, 5, 1280)
+
+
+@pytest.mark.parametrize("sizes,served", [
+    ((320, 8, 77, 1, 1280), True), ((320, 8, 80, 8, 64), True), ((320, 8, 7, 5, 1280), True),
+    ((64, 8, 77, 1, 256), False), ((320, 5, 77, 1, 1280), False), ((640, 8, 77, 1, 2560), False),
+    ((320, 8, 81, 1, 1280), False), ((320, 8, 77, 9, 1280), False), ((320, 8, 77, 1, 1288), False),
+    ((320, 8, 77, 0, 1280), False),
+])
+def test_kernel_serves_is_the_rule_check_kernel_shape_raises_by(sizes, served):
+    assert tfused.kernel_serves(*sizes) is served
+    if served:
+        tfused.check_kernel_shape(*sizes)
+    else:
+        with pytest.raises(ValueError, match="built for"):
+            tfused.check_kernel_shape(*sizes)
+
+
+def test_fused_bundles_are_routed_by_the_kernels_own_rule_on_the_card():
+    # a narrow UNet with fused blocks: on the CPU every C <= 320 layer gets
+    # a bundle (the plain version serves any width); context K/V that lie on
+    # the card route a layer to the fused tail only if the CUDA kernel is
+    # built for its sizes, so these layers keep the unfused tail
+    import types
+
+    from photoverse_tpu_torch.engine import inference
+    from photoverse_tpu_torch.models.unet import UNet2DCondition, UNetConfig
+
+    cfg = UNetConfig(block_out_channels=(32, 64), layers_per_block=1, cross_attention_dim=24,
+                     num_heads=4, norm_num_groups=8, fused_blocks=True, fused_block_max_channels=32)
+    with torch.device("cpu"):
+        net = UNet2DCondition(cfg).eval().requires_grad_(False)
+    models = types.SimpleNamespace(unet=net, dtype=torch.float32)
+    kv = inference.precompute_ctx_kv(models, torch.zeros(2, 7, 24), torch.zeros(2, 1, 24))
+    on_cpu = inference.precompute_fused_bundles(models, kv)
+    widths = [blk.attn2.to_out[0].out_features for blk in net.cross_attentions()]
+    assert 32 in widths and 64 in widths
+    assert [b is not None for b in on_cpu] == [c <= 32 for c in widths]
+    card = [tuple(types.SimpleNamespace(device=torch.device("cuda"), shape=t.shape) for t in layer)
+            for layer in kv]
+    assert all(b is None for b in inference.precompute_fused_bundles(models, card))

@@ -13,7 +13,7 @@ from photoverse_tpu_torch.core import schedulers as tsched
 def test_dpm_coefficient_tables_match_jax(steps):
     # the host math is the same numpy code; the f32 tables agree to 1e-7
     want = jsched.DPMSolverMultistep.create(jsched.make_sd15_schedule(), steps).scan_inputs()
-    got = tsched.DPMSolverMultistep.create(tsched.make_sd15_schedule(), steps).step_inputs()
+    got = tsched.DPMSolverMultistep.create(tsched.make_sd15_schedule(), steps).step_inputs("cpu")
     assert set(got) == set(want)
     np.testing.assert_array_equal(got["t"].numpy(), np.asarray(want["t"]))
     for k in ("a", "b", "c", "eps_coef", "x0_scale"):
@@ -34,7 +34,7 @@ def test_solver_steps_match_jax():
     rng = np.random.RandomState(0)
     x = rng.randn(2, 4, 4, 4).astype(np.float32)
     jc, tc = js.init_carry(jnp.asarray(x)), ts.init_carry(torch.from_numpy(x))
-    jx, tx = js.scan_inputs(), ts.step_inputs()
+    jx, tx = js.scan_inputs(), ts.step_inputs("cpu")
     for i in range(3):
         eps = rng.randn(*x.shape).astype(np.float32)
         jc = js.advance({k: v[i] for k, v in jx.items()}, jc, jnp.asarray(eps))

@@ -142,7 +142,7 @@ def test_train_step_matches_jax(face):
         jloss.model = amodel
         kw = dict(face_loss_fn=lambda _p, x, gen: jloss(x, gen, maximize=True, normalize=False),
                   face_solver=JaxSolver.create(modules.schedule, FACE_STEPS), face_weight_scale=2.0)
-        arc = ArcFaceResNet18(ArcFaceConfig(input_size=ARC_SIZE))
+        arc = ArcFaceResNet18(ArcFaceConfig(input_size=ARC_SIZE), device="cpu")
         from_jax.load_jax_arcface(arc, jax.tree.map(np.asarray, aparams))
         tkw = dict(face_loss_fn=make_face_loss_fn(FaceLoss(arc.requires_grad_(False))),
                    face_solver=DPMSolverMultistep.create(port.schedule, FACE_STEPS),
@@ -276,7 +276,7 @@ def test_arcface_and_face_loss_match_jax():
     aparams = jax.tree_util.tree_map_with_path(
         lambda p, v: v + jnp.asarray(rng.rand(*v.shape).astype(np.float32) * 0.2)
         if getattr(p[-1], "key", "") in ("mean", "var", "weight") else v, aparams)
-    arc = ArcFaceResNet18(ArcFaceConfig(input_size=ARC_SIZE))
+    arc = ArcFaceResNet18(ArcFaceConfig(input_size=ARC_SIZE), device="cpu")
     from_jax.load_jax_arcface(arc, jax.tree.map(np.asarray, aparams))
     x = rng.randn(2, ARC_SIZE, ARC_SIZE, 1).astype(np.float32)
     want = np.asarray(amodel.apply({"params": aparams}, jnp.asarray(x)))

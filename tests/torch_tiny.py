@@ -27,6 +27,7 @@ def port_models(modules, params, unet_overrides=None, vae_overrides=None):
         vae_config=_mirror(vae.VAEConfig, modules.vae.config, **(vae_overrides or {})),
         text_config=_mirror(clip.CLIPTextConfig, modules.text_encoder.config),
         vision_config=_mirror(clip.CLIPVisionConfig, modules.vision_encoder.config),
+        device="cpu",
     )
     load_jax_params(models, jax.tree.map(np.asarray, params))
     return models
