@@ -7,9 +7,9 @@ Phases (each one fails the run on error):
   2. build:  compiles photoverse_tpu_torch/csrc/*.cu with nvcc (sm_90a).
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card at the shapes the main paths give it (and at ragged lengths
-     for the wgmma flash kernel), with CUDA-event times beside the bound
-     from ops/bounds.py and one PyTorch library call on the same inputs;
-     one planted fault per kernel shows that its limit catches it.
+     for the flash forwards and the flash backward), with CUDA-event times
+     beside the bound from ops/bounds.py and one PyTorch library call on the
+     same inputs; planted faults show that each kernel's limit catches them.
   4. pipeline: SD-1.5-width models with random weights from a numpy seed,
      512px identity-conditioned generation (DPM-Solver++ 50 steps,
      guidance 1, two requests with their own noise seeds), then a guidance-6
@@ -40,8 +40,8 @@ from unittest import mock
 
 import numpy as np
 
-# flash: kernel output is bf16 (p is rounded to bf16 inside for head dims
-# 40 and 80, to TF32 for 512). With 0.3*randn inputs the softmax is near
+# flash: kernel output is bf16 (p, and in the backward ds, are rounded to
+# bf16 inside for the products that take them). With 0.3*randn inputs the softmax is near
 # uniform and |out| is only 0.015-0.03, so the limit is relative to the
 # largest |out|: 2^-6 of it is 2-4 bf16 ulps there. Dropping the last 32 or
 # 64 keys moves it by 9-26% of max|out| (PERF.md).
@@ -116,7 +116,7 @@ def phase_build():
             name = name[max(name.find("kernel") - 16, 0):][:60]  # its name and template arguments
         elif "spill" in line:
             log(f"  {name}: {line.strip()}")
-        elif "registers" in line:
+        elif "Used" in line and "registers" in line:
             log(f"  {name}: {line.split(':', 1)[-1].strip()}")
 
 
@@ -216,7 +216,7 @@ def phase_kernels(source_tpu: dict):
     gen.manual_seed(0)
     rows = []
     wgmma_src = "photoverse_tpu_torch/csrc/flash_fwd_wgmma.cu"
-    mma_src = "photoverse_tpu_torch/csrc/flash_fwd.cu"
+    stream_src = "photoverse_tpu_torch/csrc/flash_fwd_stream.cu"
 
     def record(name, route, source, replaces, err, tol, fn, iters, plain_ms, shape, work, library=None,
                ok=None):
@@ -301,9 +301,28 @@ def phase_kernels(source_tpu: dict):
     err = (got.float() - want).abs().max().item()
     tol = FLASH_RTOL * want.abs().max().item()
     plain_ms = _time_ms(lambda: fs.flash_sdpa_plain(q, k, v), 5)
-    record("flash_sdpa_stream", "cuda", mma_src, source_tpu["flash_sdpa_stream"], err, tol,
+    record("flash_sdpa_stream", "cuda", stream_src, source_tpu["flash_sdpa_stream"], err, tol,
            lambda: fs.flash_sdpa_stream(q, k, v), 10, plain_ms, [B, S, S, H, d],
            bounds.flash_fwd(B, S, S, H, d), sdpa(q, k, v, label="d=512"))
+    dropped = fs.flash_sdpa_stream(q, k[:, :-32], v[:, :-32])
+    e = (dropped.float() - want).abs().max().item()
+    fault(e > tol, f"flash_sdpa_stream last 32 keys dropped: err {e:.6g} (tol {tol:.6g})")
+    # keys longer than queries, a last tile shorter than a 64-row box, fewer
+    # rows than one block
+    for B, Sq, Skv, H, d in ((1, 1000, 4000, 1, 512), (1, 77, 77, 1, 512)):
+        q = (0.3 * torch.randn(B, Sq, H, d, generator=gen, device=dev)).bfloat16()
+        k = (0.3 * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
+        v = (0.3 * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
+        want, want_lse = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())
+        tol = FLASH_RTOL * want.abs().max().item()
+        got = fs.flash_sdpa_stream(q, k, v)
+        err = (got.float() - want).abs().max().item()
+        got2, lse = fs.flash_fwd_lse(q, k, v)
+        lse_err = (lse - want_lse).abs().max().item()
+        same = torch.equal(got, got2) and torch.equal(got, fs.flash_sdpa_stream(q, k, v))
+        check(err <= tol and lse_err <= LSE_ATOL and same,
+              f"flash_sdpa_stream ragged {[B, Sq, Skv, H, d]}: max_abs_err {err:.6g} (tol {tol:.6g}), lse err "
+              f"{lse_err:.3g} (tol {LSE_ATOL:.3g}), lse variant and repeat bit-identical {same}")
 
     for K in (1, 5):  # token_index=0 gives K=1; the training path K=5
         B, S, C, H, St, F = 2, 4096, 320, 8, 77, 1280
@@ -357,7 +376,7 @@ def phase_kernels(source_tpu: dict):
         want = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())
         err, tol, within = rel_err(got, want)
         plain_ms = _time_ms(lambda: fs.flash_fwd_lse_plain(q, k, v), 5)
-        record(name, "cuda", mma_src if d == 512 else wgmma_src, source_tpu[name],
+        record(name, "cuda", stream_src if d == 512 else wgmma_src, source_tpu[name],
                err, tol, lambda: fs.flash_fwd_lse(q, k, v), 10, plain_ms, [B, S, S, H, d],
                bounds.flash_fwd(B, S, S, H, d, with_lse=True), sdpa(q, k, v), ok=within)
         if name == "flash_sdpa_fwd_lse" and d == 40:
@@ -389,6 +408,20 @@ def phase_kernels(source_tpu: dict):
             dk[:, -64:] = 0
             dv[:, -64:] = 0
             planted("flash_bwd", "dk/dv of the last 64 keys dropped", (dq, dk, dv), want)
+            dq = got[0].clone()
+            dq[:, -64:] = 0
+            planted("flash_bwd", "dq of the last query block zeroed", (dq, got[1], got[2]), want)
+    # lengths that are no multiple of the 64-row tiles or of a block's rows
+    for B, S, H, d in ((1, 1000, 8, 40), (4, 333, 8, 80), (1, 77, 8, 80)):
+        q, k, v = (torch.randn(B, S, H, d, generator=gen, device=dev).bfloat16() for _ in range(3))
+        out, lse = fs.flash_fwd_lse_plain(q, k, v)
+        g = torch.randn(B, S, H, d, generator=gen, device=dev).bfloat16()
+        got = fs.flash_bwd(q, k, v, out, lse, g)
+        want = fs.flash_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, g.float())
+        err, tol, within = rel_err(got, want)
+        same = all(torch.equal(a, b) for a, b in zip(got, fs.flash_bwd(q, k, v, out, lse, g)))
+        check(within and same, f"flash_bwd ragged {[B, S, H, d]}: worst err {err:.6g} (tol {tol:.6g}), "
+              f"repeat bit-identical {same}")
     if not all(faults_caught):
         rows.append(dict(name="planted faults", ok=False))
     return rows

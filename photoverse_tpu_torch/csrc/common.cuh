@@ -7,44 +7,17 @@
 
 namespace pv {
 
-__device__ __forceinline__ float ld(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
 // Two neighbouring bf16 values as one 32-bit word (4-byte aligned).
 __device__ __forceinline__ uint32_t ld32(const __nv_bfloat16* p) {
   return *reinterpret_cast<const uint32_t*>(p);
 }
 
-// f32 -> tf32 operand, rounded to nearest (a bf16 value converts exactly).
-__device__ __forceinline__ uint32_t tf32(float x) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(x));
-  return r;
-}
-
-// TF32 operand from a bf16 value: the same bits, widened (exact).
-__device__ __forceinline__ uint32_t bf16_tf32(__nv_bfloat16 x) {
-  return static_cast<uint32_t>(__bfloat16_as_ushort(x)) << 16;
-}
-
-// c (16x8 f32) += a (16x8 tf32, row-major) * b (8x8 tf32, column-major).
-// With g = lane / 4 and t = lane % 4 the fragments are
-//   a = {A[g][t], A[g+8][t], A[g][t+4], A[g+8][t+4]},  b = {B[t][g], B[t+4][g]},
-//   c = {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}.
-__device__ __forceinline__ void mma_tf32(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
-                                         uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
 // c (16x8 f32) += a (16x16 bf16, row-major) * b (16x8 bf16, column-major).
-// Each register holds two bf16 neighbours along k:
+// With g = lane / 4 and t = lane % 4, each register two bf16 neighbours
+// along k:
 //   a = {A[g][2t:2t+2], A[g+8][2t:2t+2], A[g][2t+8:2t+10], A[g+8][2t+8:2t+10]},
-//   b = {B[2t:2t+2][g], B[2t+8:2t+10][g]}; c as in mma_tf32.
+//   b = {B[2t:2t+2][g], B[2t+8:2t+10][g]},
+//   c = {C[g][2t], C[g][2t+1], C[g+8][2t], C[g+8][2t+1]}.
 __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
                                          uint32_t b1) {
   asm volatile(

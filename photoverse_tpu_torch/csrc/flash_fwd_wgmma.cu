@@ -1,8 +1,8 @@
 // Flash-attention forward for head dims 40 and 80 on Hopper's warpgroup
 // tensor cores: the kernel behind `ops/flash_sdpa.py:flash_sdpa` and, with
 // its log-sum-exp output, behind `flash_fwd_lse` (the forward of
-// `flash_sdpa_diff`) at the UNet's head dims. The d = 512 paths stay on
-// the mma.sync template in flash_fwd.cu.
+// `flash_sdpa_diff`) at the UNet's head dims. The d = 512 paths have their
+// own kernel in flash_fwd_stream.cu.
 //
 // Replaces the TPU kernels photoverse_tpu/ops/flash_sdpa.py:_kernel (via
 // flash_sdpa) and _kernel_lse (via _flash_fwd_lse): out = softmax(q k^T

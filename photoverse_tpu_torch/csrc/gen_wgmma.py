@@ -5,14 +5,16 @@
 An asm statement names every accumulator register, so each width N needs
 its own statement; this script spells them out. `ss`: A and B from shared
 memory (both K-major). `rs`: A from registers, B from shared memory in
-MN-major order (the transpose bit set). All are m64nNk16, bf16 operands,
-f32 accumulators (N / 2 per thread).
+MN-major order (the transpose bit set). `rsk`: A from registers, B from
+shared memory K-major. All are m64nNk16, bf16 operands, f32 accumulators
+(N / 2 per thread).
 """
 
 import os
 
-SS = (64, 80)  # q k^T with 64 keys; the fused tail's products
-RS = (40, 80)       # p v at head dims 40 and 80
+SS = (64, 80)       # 64 x 64 score tiles (q k^T, g v^T and their transposes); the fused tail's products
+RSK = (64,)         # the backward's score tiles with the block's own rows held in registers
+RS = (40, 80, 256)  # p v and the backward's ds k, p^T g, ds^T q at head dims 40 and 80; half of d = 512
 
 HEAD = """// Generated by gen_wgmma.py; edit that script, not this file.
 // m64nNk16 bf16 wgmma with f32 accumulators, N / 2 registers a thread:
@@ -52,16 +54,18 @@ __device__ __forceinline__ void wgmma_ss_n{n}(float (&d)[{r}], uint64_t a, uint6
 """
 
 
-def rs(n):
+def rs(n, kmajor=False):
     r = n // 2
+    what = f"B^T (B {n} x 16, shared, K-major)" if kmajor else f"B (16 x {n}, shared, N contiguous)"
+    name = "rsk" if kmajor else "rs"
     return f"""
-// D (64 x {n}) = A (64 x 16, registers) B (16 x {n}, shared, N contiguous) + (acc ? D : 0)
-__device__ __forceinline__ void wgmma_rs_n{n}(float (&d)[{r}], const uint32_t (&a)[4], uint64_t b,
+// D (64 x {n}) = A (64 x 16, registers) {what} + (acc ? D : 0)
+__device__ __forceinline__ void wgmma_{name}_n{n}(float (&d)[{r}], const uint32_t (&a)[4], uint64_t b,
                                              int acc) {{
   asm volatile(
       "{{\\n.reg .pred p;\\nsetp.ne.b32 p, %{r + 5}, 0;\\n"
       "wgmma.mma_async.sync.aligned.m64n{n}k16.f32.bf16.bf16 "
-      "{{{regs(r)}}}, {{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, %{r + 4}, p, 1, 1, 1;\\n}}\\n"
+      "{{{regs(r)}}}, {{%{r}, %{r + 1}, %{r + 2}, %{r + 3}}}, %{r + 4}, p, 1, 1, {0 if kmajor else 1};\\n}}\\n"
       : {outs(r)}
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(acc));
 }}
@@ -78,9 +82,10 @@ def dispatch(kind, ns, args, call):
 
 def main():
     text = HEAD
-    text += "".join(ss(n) for n in SS) + "".join(rs(n) for n in RS)
+    text += "".join(ss(n) for n in SS) + "".join(rs(n) for n in RS) + "".join(rs(n, True) for n in RSK)
     text += dispatch("ss", SS, "uint64_t a, uint64_t b", "a, b")
     text += dispatch("rs", RS, "const uint32_t (&a)[4], uint64_t b", "a, b")
+    text += dispatch("rsk", RSK, "const uint32_t (&a)[4], uint64_t b", "a, b")
     text += "\n}  // namespace pv\n"
     path = os.path.join(os.path.dirname(os.path.abspath(__file__)), "wgmma_gen.cuh")
     with open(path, "w") as f:

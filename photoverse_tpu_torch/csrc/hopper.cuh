@@ -111,6 +111,23 @@ __device__ __forceinline__ uint64_t desc_mnmajor(uint32_t addr, uint32_t slab_by
          (static_cast<uint64_t>((slab_bytes & 0x3FFFF) >> 4) << 16) | (64ull << 32) | (1ull << 62);
 }
 
+// The same descriptors in two halves, for a run of wgmmas over one tile:
+// the low word holds the address (in 16-byte units, so a step of n bytes
+// adds n / 16 to it) and, for MN-major, the slab distance; the high word
+// is the same for every tile.
+constexpr uint32_t DESC_HI = 64u | (1u << 30);
+__device__ __forceinline__ uint32_t desc_lo_kmajor(uint32_t addr) {
+  return ((addr & 0x3FFFF) >> 4) | (1u << 16);
+}
+__device__ __forceinline__ uint32_t desc_lo_mnmajor(uint32_t addr, uint32_t slab_bytes) {
+  return ((addr & 0x3FFFF) >> 4) | (((slab_bytes & 0x3FFFF) >> 4) << 16);
+}
+__device__ __forceinline__ uint64_t desc_join(uint32_t lo) {
+  uint64_t d;
+  asm("mov.b64 %0, {%1, %2};\n" : "=l"(d) : "r"(lo), "r"(DESC_HI));
+  return d;
+}
+
 // Byte offset of element (r, c) of such a tile (c < 64).
 __device__ __forceinline__ int swz128(int r, int c) {
   return r * 128 + ((((c >> 3) ^ r) & 7) << 4) + (c & 7) * 2;
@@ -123,6 +140,26 @@ __device__ __forceinline__ void wgmma_commit() {
 template <int N>
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// Pins the order of ordinary instructions on these registers against the
+// asm statements around them. After a wait_group: the accumulators of an
+// asynchronous wgmma are not read ahead of the wait that completes it.
+// Before a wgmma.fence: what defines them is not moved behind it, where
+// ptxas would have to serialise the wgmmas of the stage.
+template <int N>
+__device__ __forceinline__ void fence_regs(float (&d)[N]) {
+#pragma unroll
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// The same for operand fragments: what was computed into them stays ahead
+// of the wgmma.fence that follows.
+__device__ __forceinline__ void fence_regs(uint32_t (&a)[4][4]) {
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" : "+r"(a[i][j])::"memory");
 }
 
 template <int R>

@@ -52,13 +52,10 @@ I = ctypes.c_int
 L = ctypes.c_longlong
 # C signatures of the entry points in csrc/ (all return cudaError_t as int)
 SIGNATURES = {
-    # q, k, v, out, B, Sq, Skv, H, D, strides (b, s, h) of q, k, v, stream
-    "pv_flash_fwd": [P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, L, L, L, P],
-    # as pv_flash_fwd with lse (B, H, Sq) f32 after out
-    "pv_flash_fwd_lse": [P, P, P, P, P, I, I, I, I, I, L, L, L, L, L, L, L, L, L, P],
     # q, k, v, out, lse or null, B, Sq, Skv, H, D, strides (b, s, h) of q, k,
-    # v, stream
+    # v, stream: head dims 40 and 80, then 512
     "pv_flash_fwd_wgmma": [P] * 5 + [I] * 5 + [L] * 9 + [P],
+    "pv_flash_fwd_stream": [P] * 5 + [I] * 5 + [L] * 9 + [P],
     # q, k, v, g, lse, delta, dq, dk, dv, B, S, H, D, strides (b, s, h) of
     # q, k, v, g, stream
     "pv_flash_bwd": [P] * 9 + [I] * 4 + [L] * 12 + [P],

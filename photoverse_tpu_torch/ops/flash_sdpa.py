@@ -3,9 +3,10 @@ head dims 40 and 80) and `flash_sdpa_stream` (the VAE's single-head d=512
 attention), and their differentiable counterparts `flash_sdpa_diff` and
 `flash_sdpa_stream_diff`. Port of photoverse_tpu/ops/flash_sdpa.py.
 
-Kernels (all in csrc/, launched for CUDA tensors):
-  - flash_sdpa (head dims 40 and 80): csrc/flash_fwd_wgmma.cu, wgmma fed
-    by TMA; flash_sdpa_stream (d=512): csrc/flash_fwd.cu, mma.sync;
+Kernels (all in csrc/, launched for CUDA tensors; every product wgmma,
+every tile fed by TMA):
+  - flash_sdpa (head dims 40 and 80): csrc/flash_fwd_wgmma.cu;
+    flash_sdpa_stream (d=512): csrc/flash_fwd_stream.cu;
   - the forward of both autograd Functions: the same two kernels with
     their log-sum-exp output (`flash_fwd_lse`);
   - the backward of flash_sdpa_diff: csrc/flash_bwd.cu (`flash_bwd`).
@@ -41,10 +42,9 @@ __all__ = [
     "BWD_HEAD_DIMS",
 ]
 
-# head dims the CUDA kernels are instantiated for (csrc/flash_fwd_wgmma.cu
-# and csrc/flash_fwd.cu, csrc/flash_bwd.cu)
+# head dims the CUDA kernels are built for: csrc/flash_fwd_wgmma.cu (40, 80)
+# and csrc/flash_fwd_stream.cu (512); csrc/flash_bwd.cu
 KERNEL_HEAD_DIMS = (40, 80, 512)
-WGMMA_HEAD_DIMS = (40, 80)
 BWD_HEAD_DIMS = (40, 80)
 
 
@@ -67,7 +67,7 @@ def flash_fwd_lse_plain(q, k, v):
 
 def _delta(out, g):
     """rowsum(g * out) as (B, H, S) f32."""
-    return (g.float() * out.float()).sum(dim=-1).transpose(1, 2).contiguous()
+    return (g.float() * out).sum(dim=-1, dtype=torch.float32).transpose(1, 2).contiguous()
 
 
 def _check_equal_lengths(q, k, what):
@@ -155,7 +155,7 @@ def _check_tma_layout(name, t):
 
 
 def _check_kernel_inputs(dims, **ts):
-    """The kernels read bf16 (B, S, H, d) by strides, bf16 pairs as 32-bit words."""
+    """The kernels read bf16 (B, S, H, d) tensors in place through TMA."""
     for name, t in ts.items():
         if t.device.type != "cuda":
             raise ValueError(f"flash attention runs on CPU or CUDA tensors, got {t.device}")
@@ -163,10 +163,7 @@ def _check_kernel_inputs(dims, **ts):
             raise TypeError(f"the CUDA flash kernels take bf16, got {t.dtype} for {name}")
         if t.shape[-1] not in dims:
             raise ValueError(f"the CUDA flash kernel is built for head dims {dims}, got {t.shape[-1]}")
-        if t.stride(-1) != 1:
-            raise ValueError(f"{name} must have unit stride on the head dim")
-        if t.data_ptr() % 4 or any(st % 2 for st in t.stride()[:3]):
-            raise ValueError(f"{name} must be 4-byte aligned with even strides")
+        _check_tma_layout(name, t)
 
 
 def _strides(*ts):
@@ -177,28 +174,15 @@ def _launch(q, k, v, with_lse: bool):
     B, Sq, H, d = q.shape
     _check_kernel_inputs(KERNEL_HEAD_DIMS, q=q, k=k, v=v)
     out = torch.empty((B, Sq, H, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
     lib = _build.load_library()
-    dims = (B, Sq, k.shape[1], H, d)
-    stream = _build.stream_ptr(q.device)
-    if d in WGMMA_HEAD_DIMS:
-        for name, t in (("q", q), ("k", k), ("v", v)):
-            _check_tma_layout(name, t)
-        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device) if with_lse else None
-        code = lib.pv_flash_fwd_wgmma(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-            lse.data_ptr() if with_lse else None, *dims, *_strides(q, k, v), stream)
-        _build.check(code, "pv_flash_fwd_wgmma")
-        return (out, lse) if with_lse else out
-    if with_lse:
-        lse = torch.empty((B, H, Sq), dtype=torch.float32, device=q.device)
-        code = lib.pv_flash_fwd_lse(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                                    lse.data_ptr(), *dims, *_strides(q, k, v), stream)
-        _build.check(code, "pv_flash_fwd_lse")
-        return out, lse
-    code = lib.pv_flash_fwd(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-                            *dims, *_strides(q, k, v), stream)
-    _build.check(code, "pv_flash_fwd")
-    return out
+    name = "pv_flash_fwd_stream" if d == 512 else "pv_flash_fwd_wgmma"
+    code = getattr(lib, name)(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        lse.data_ptr() if with_lse else None, B, Sq, k.shape[1], H, d, *_strides(q, k, v),
+        _build.stream_ptr(q.device))
+    _build.check(code, name)
+    return (out, lse) if with_lse else out
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
@@ -240,8 +224,9 @@ def flash_fwd_lse(q, k, v):
 
 def flash_bwd(q, k, v, out, lse, g):
     """(dq, dk, dv) from the forward's (out, lse) and the output gradient g,
-    in the inputs' dtype. Kernel for head dims 40 and 80 (csrc/flash_bwd.cu);
-    delta = rowsum(g out) is computed here, in torch."""
+    in the inputs' dtype. Kernels for head dims 40 and 80 (csrc/flash_bwd.cu:
+    one for dq, one for dk and dv); delta = rowsum(g out) is computed here,
+    in torch. The kernels round p and ds to bf16 for their products."""
     _check(q, k, v)
     _check_equal_lengths(q, k, "flash backward")
     if g.shape != q.shape or out.shape != q.shape:

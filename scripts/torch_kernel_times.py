@@ -1,13 +1,17 @@
 """Times and checks the port's wgmma kernels on one H100.
 
-    python3 scripts/torch_kernel_times.py [flash] [fused] [--quick] [--earlier DIR]
+    python3 scripts/torch_kernel_times.py [flash] [bwd] [stream] [fused] [--quick] [--earlier DIR]
 
 For `flash_sdpa` (head dims 40 and 80): error, CUDA-event, device and host
 time at small, ragged and main-path shapes, beside one
-`scaled_dot_product_attention` call on the same inputs. For
-`fused_cross_ff`: the same at K = 1 and 5. `--earlier DIR` also times `flash_sdpa` and `fused_cross_ff` of another checkout of
-this repository (an earlier commit unpacked with `git archive`) at the
-main-path shapes, on the same card in the same run. Each family runs in a
+`scaled_dot_product_attention` call on the same inputs. `bwd`: the same
+for `flash_bwd` (errors of dq, dk, dv over their limits, the library time
+by autograd through such a call). `stream`: the same for
+`flash_sdpa_stream` and the d=512 `flash_fwd_lse`. For `fused_cross_ff`:
+the same at K = 1 and 5. `--earlier DIR` also times these kernels of
+another checkout of this repository (an earlier commit unpacked with
+`git archive`) at the main-path shapes, on the same card in the same run,
+twice: before and after this tree's families. Each family runs in a
 child process with a time limit, so a kernel that hangs ends the child and
 not the run. Prints the card's name and power limit first; `--quick` checks
 each shape once and times nothing.
@@ -36,6 +40,25 @@ time_ms = cs._time_ms
 
 def device_ms(fn, iters):
     return cs._fmt_ms(cs._device_ms(fn, iters))
+
+
+def device_split(fn, iters, names):
+    """Device ms per call of the kernels whose name holds one of `names`,
+    and of everything else, from one profiler trace."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    parts = dict.fromkeys((*names, "other"), 0.0)
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total", None) or getattr(e, "self_cuda_time_total", 0)
+        parts[next((n for n in names if n in e.key), "other")] += t / 1e3 / iters
+    return " ".join(f"{k} {v:.4f}" for k, v in parts.items())
 
 
 def log(msg):
@@ -151,10 +174,106 @@ def child_fused(quick: bool):
             log(f"  plain version: {time_ms(lambda: fb.reference_cross_ff(h, bundle, H), 5):.4f} ms")
 
 
+def _bwd_case(gen, B, S, H, d, dev):
+    import torch
+
+    from photoverse_tpu_torch.ops import flash_sdpa as fs
+
+    q, k, v, g = (torch.randn(B, S, H, d, generator=gen, device=dev).bfloat16() for _ in range(4))
+    out, lse = fs.flash_fwd_lse_plain(q, k, v)
+    return q, k, v, out, lse, g
+
+
+def _library_bwd(q, k, v, g):
+    """Autograd through one scaled_dot_product_attention call's output."""
+    import torch
+    import torch.nn.functional as F
+
+    qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_() for x in (q, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    gt = g.transpose(1, 2).contiguous()
+    return lambda: torch.autograd.grad(out, (qt, kt, vt), gt, retain_graph=True)
+
+
+BWD_MAIN = [(4, 4096, 8, 40), (4, 1024, 8, 80)]
+STREAM_MAIN = (2, 4096, 4096, 1, 512)
+
+
+def child_bwd(quick: bool):
+    import torch
+
+    from photoverse_tpu_torch.ops import bounds
+    from photoverse_tpu_torch.ops import flash_sdpa as fs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    small = [(1, 100, 2, 40), (2, 256, 3, 80), (1, 64, 1, 40), (1, 1000, 8, 40), (4, 333, 8, 80),
+             (1, 77, 8, 80)]
+    for B, S, H, d in small + BWD_MAIN:
+        args = _bwd_case(gen, B, S, H, d, dev)
+        want = fs.flash_bwd_plain(*(a.float() for a in args))
+        log(f"bwd {(B, S, H, d)}: bound {bounds.bound_ms(*bounds.flash_bwd(B, S, H, d)):.4f} ms")
+        got = fs.flash_bwd(*args)
+        torch.cuda.synchronize()
+        ratios = [((a.float() - w).abs().max() / (FLASH_RTOL * w.abs().max())).item() for a, w in zip(got, want)]
+        same = all(torch.equal(a, b) for a, b in zip(got, fs.flash_bwd(*args)))
+        line = (f"  err over limit dq {ratios[0]:.3f} dk {ratios[1]:.3f} dv {ratios[2]:.3f} "
+                f"repeat identical {same}")
+        if (B, S, H, d) in BWD_MAIN and not quick:
+            line += (f" {time_ms(lambda: fs.flash_bwd(*args), 10):.4f} ms, device "
+                     f"{device_ms(lambda: fs.flash_bwd(*args), 10)} ms (with delta's torch ops), host "
+                     f"{host_us(lambda: fs.flash_bwd(*args), 50):.1f} us")
+            lib = _library_bwd(args[0], args[1], args[2], args[5])
+            line += f"; library {time_ms(lib, 10):.4f} ms, device {device_ms(lib, 10)} ms"
+            line += ("; device ms by kernel: "
+                     + device_split(lambda: fs.flash_bwd(*args), 10, ("bwd_dq", "bwd_dkv")))
+        log(line + ("" if max(ratios) <= 1 and same else " FAIL"))
+
+
+def child_stream(quick: bool):
+    import torch
+    import torch.nn.functional as F
+
+    from photoverse_tpu_torch.ops import bounds
+    from photoverse_tpu_torch.ops import flash_sdpa as fs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    cases = [(1, 300, 77, 1, 512), (1, 64, 64, 2, 512), (1, 1000, 4000, 1, 512), (1, 77, 77, 1, 512),
+             STREAM_MAIN]
+    for B, Sq, Skv, H, d in cases:
+        for scale in (0.3, 1.0):
+            q = (scale * torch.randn(B, Sq, H, d, generator=gen, device=dev)).bfloat16()
+            k = (scale * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
+            v = (scale * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
+            want, want_lse = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())
+            tol = FLASH_RTOL * want.abs().max().item()
+            log(f"stream {(B, Sq, Skv, H, d)} scale {scale}: tol {tol:.4g}, bound "
+                f"{bounds.bound_ms(*bounds.flash_fwd(B, Sq, Skv, H, d)):.4f} ms")
+            got = fs.flash_sdpa_stream(q, k, v)
+            out2, lse = fs.flash_fwd_lse(q, k, v)
+            torch.cuda.synchronize()
+            err = (got.float() - want).abs().max().item()
+            lerr = (lse - want_lse).abs().max().item()
+            same = torch.equal(out2, got) and torch.equal(got, fs.flash_sdpa_stream(q, k, v))
+            line = (f"  err {err:.4g} ({err / tol:.3f} of tol) lse err {lerr:.3g} ({lerr / LSE_ATOL:.3f} of "
+                    f"tol) lse variant and repeat identical {same}")
+            main = (B, Sq, Skv, H, d) == STREAM_MAIN
+            if main and not quick:
+                line += (f" {time_ms(lambda: fs.flash_sdpa_stream(q, k, v), 10):.4f} ms, device "
+                         f"{device_ms(lambda: fs.flash_sdpa_stream(q, k, v), 10)} ms; with lse "
+                         f"{time_ms(lambda: fs.flash_fwd_lse(q, k, v), 10):.4f} ms, device "
+                         f"{device_ms(lambda: fs.flash_fwd_lse(q, k, v), 10)} ms")
+                qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+                lib = lambda: F.scaled_dot_product_attention(qt, kt, vt)  # noqa: E731
+                line += f"; library {time_ms(lib, 10):.4f} ms, device {device_ms(lib, 10)} ms"
+            log(line + ("" if err <= tol and lerr <= LSE_ATOL and same else " FAIL"))
+
+
 def child_earlier(quick: bool):
-    """`flash_sdpa` and `fused_cross_ff` of the checkout in the current
-    directory (its own chip_smoke.py builds the fused tail's inputs in its
-    own layout), CUDA-event, device and host time at the main-path shapes."""
+    """The kernels of the checkout in the current directory (its own
+    chip_smoke.py builds the fused tail's inputs in its own layout),
+    CUDA-event, device and host time at the main-path shapes."""
     import torch
 
     import chip_smoke as theirs  # the other checkout's
@@ -164,6 +283,17 @@ def child_earlier(quick: bool):
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
     log(f"earlier tree {os.getcwd()}")
+    for B, S, H, d in BWD_MAIN:
+        args = _bwd_case(gen, B, S, H, d, dev)
+        log(f"  flash_bwd {(B, S, H, d)}: {time_ms(lambda: fs.flash_bwd(*args), 10):.4f} ms, device "
+            f"{device_ms(lambda: fs.flash_bwd(*args), 10)} ms (with delta's torch ops), host "
+            f"{host_us(lambda: fs.flash_bwd(*args), 50):.1f} us")
+    B, S, _, H, d = STREAM_MAIN
+    q, k, v = ((0.3 * torch.randn(B, S, H, d, generator=gen, device=dev)).bfloat16() for _ in range(3))
+    log(f"  flash_sdpa_stream {STREAM_MAIN}: {time_ms(lambda: fs.flash_sdpa_stream(q, k, v), 10):.4f} ms, device "
+        f"{device_ms(lambda: fs.flash_sdpa_stream(q, k, v), 10)} ms; with lse "
+        f"{time_ms(lambda: fs.flash_fwd_lse(q, k, v), 10):.4f} ms, device "
+        f"{device_ms(lambda: fs.flash_fwd_lse(q, k, v), 10)} ms")
     for B, S, H, d in ((2, 4096, 8, 40), (2, 1024, 8, 80), (4, 4096, 8, 40), (4, 1024, 8, 80)):
         q, k, v = ((0.3 * torch.randn(B, S, H, d, generator=gen, device=dev)).bfloat16() for _ in range(3))
         log(f"  flash_sdpa {(B, S, S, H, d)}: {time_ms(lambda: fs.flash_sdpa(q, k, v), 20):.4f} ms, device "
@@ -183,7 +313,8 @@ def main():
         import torch
 
         torch.backends.cuda.matmul.allow_tf32 = False
-        {"flash": child_flash, "fused": child_fused, "earlier": child_earlier}[
+        {"flash": child_flash, "bwd": child_bwd, "stream": child_stream, "fused": child_fused,
+         "earlier": child_earlier}[
             args[args.index("--child") + 1]](quick)
         return 0
     import torch
@@ -200,18 +331,20 @@ def main():
     _, out = _build.build_library()
     log(f"build {time.perf_counter() - t0:.1f}s")
     name, keep = "", False
-    for line in out.splitlines():  # per wgmma kernel: template arguments, spills, registers
+    for line in out.splitlines():  # per kernel: template arguments, spills, registers; warnings
         if "Compiling entry" in line:
-            keep = "wgmma" in line or "fused" in line
-            name = line[line.find("kernel"):][:48]
+            keep = "Z" in line
+            name = line[max(line.find("flash"), line.find("fused")):][:48]
         elif keep and ("registers" in line or "spill" in line):
             log(f"  {name}: {line.strip()}")
-        elif "error" in line:
+        elif "error" in line or "arning" in line:
             log(f"  {line.strip()}")
     rc = 0
-    families = [(a, None) for a in args if a in ("flash", "fused")] or [("flash", None), ("fused", None)]
-    if "--earlier" in args:
-        families.append(("earlier", args[args.index("--earlier") + 1]))
+    names = ("flash", "bwd", "stream", "fused")
+    families = [(a, None) for a in args if a in names] or [(a, None) for a in names]
+    if "--earlier" in args:  # the other checkout first and last: the card's pace can move within a call
+        other = ("earlier", args[args.index("--earlier") + 1])
+        families = [other] + families + [other]
     for fam, cwd in families:
         cmd = [sys.executable, os.path.abspath(__file__), "--child", fam] + (["--quick"] if quick else [])
         try:

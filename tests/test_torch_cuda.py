@@ -4,14 +4,15 @@ on the card with `python -m pytest --noconftest tests/test_torch_cuda.py -q`
 (tests/conftest.py imports jax, which the card's machine does not have).
 
 Inputs are bf16; the plain versions compute in f32 from the same bf16
-tensors. The kernels accumulate in f32 (tensor-core products with bf16,
-bf16-pair or TF32 operands) and round only their bf16 output. Tolerances: flash 2^-6 of
+tensors. The kernels accumulate in f32 (tensor-core products with bf16 or
+bf16-pair operands) and round only their bf16 output. Tolerances: flash 2^-6 of
 the largest |out| (2-4 bf16 ulps of it; 0.3*randn inputs give a near-uniform
 softmax and small outputs, so an absolute limit would hide a dropped key
 tile); the fused tail 1/32 on unit-scale activations (|out| < 8, one bf16
 ulp). The lse forward and the flash backward take the same 2^-6 of the
-largest |value| per output (lse, dq, dk, dv: bf16 outputs from f32 sums
-with TF32 operands); the autograd Functions are held to gradients by
+largest |value| per output (lse, dq, dk, dv: bf16 outputs from f32 sums,
+the backward's p and ds rounded to bf16 for its products); the autograd
+Functions are held to gradients by
 autograd through the plain f32 forward at the same limit.
 """
 
@@ -103,6 +104,39 @@ def test_flash_stream_kernel_matches_plain(gen):
     got = fs.flash_sdpa_stream(q, k, v)
     want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
     assert _flash_close(got, want)
+
+
+@pytest.mark.parametrize("B,Sq,Skv,H", [
+    (1, 1000, 4000, 1),   # keys longer than queries, a last tile shorter than a 64-row box
+    (1, 77, 77, 1),       # fewer rows than one block, one full and one ragged tile
+    (2, 63, 65, 2),       # one ragged tile each way, two heads
+    (1, 300, 31, 1),      # keys shorter than one tile
+])
+def test_flash_stream_kernel_ragged_lengths(gen, B, Sq, Skv, H):
+    # the d=512 kernel with and without its lse output, against the plain version
+    q = _r(gen, B, Sq, H, 512, scale=0.3)
+    k, v = _r(gen, B, Skv, H, 512, scale=0.3), _r(gen, B, Skv, H, 512, scale=0.3)
+    want, want_lse = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())
+    before = _build.launch_counts["flash_sdpa_stream"]
+    got = fs.flash_sdpa_stream(q, k, v)
+    assert _build.launch_counts["flash_sdpa_stream"] == before + 1
+    assert _flash_close(got, want)
+    assert torch.equal(fs.flash_sdpa_stream(q, k, v), got)  # repeat calls bit-identical
+    out, lse = fs.flash_fwd_lse(q, k, v)
+    assert torch.equal(out, got)
+    assert (lse - want_lse).abs().max().item() <= 2**-10
+
+
+def test_flash_stream_kernel_reads_strided_inputs_and_refuses_what_tma_cannot_read(gen):
+    qkv = _r(gen, 2, 130, 3, 1, 512, scale=0.3)  # a packed (B, S, 3, H, d) projection
+    q, k, v = qkv.unbind(dim=2)
+    got = fs.flash_sdpa_stream(q, k, v)
+    assert _flash_close(got, fs.flash_sdpa_plain(q.float(), k.float(), v.float()))
+    odd = torch.zeros(2, 130, 1, 516, device="cuda", dtype=torch.bfloat16)[..., 4:]  # 8-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        fs.flash_sdpa_stream(odd, k, v)
+    with pytest.raises(ValueError, match="aligned"):
+        fs.flash_fwd_lse(q, k, odd)
 
 
 def test_kernel_rejects_other_dtypes_and_head_dims(gen):
@@ -216,6 +250,43 @@ def test_flash_bwd_kernel_matches_plain(gen, B, S, H, d):
         assert _flash_close(g, w)
 
 
+@pytest.mark.parametrize("B,S,H,d", [
+    (1, 1000, 8, 40),   # no multiple of the 64-row tiles or of the 128- and 192-row blocks
+    (4, 333, 8, 80),    # batch 4, a last tile of 13 rows
+    (1, 77, 8, 80),     # fewer rows than one block
+    (2, 193, 2, 40),    # one row past a 192-row block
+])
+def test_flash_bwd_kernel_ragged_lengths(gen, B, S, H, d):
+    q, k, v = (_r(gen, B, S, H, d) for _ in range(3))  # unit scale: a peaked softmax
+    out, lse = fs.flash_fwd_lse_plain(q, k, v)
+    args = (q, k, v, out, lse, _r(gen, B, S, H, d))
+    got = fs.flash_bwd(*args)
+    want = fs.flash_bwd_plain(*(a.float() for a in args))
+    for g, w in zip(got, want):
+        assert torch.isfinite(g.float()).all() and _flash_close(g, w)
+    assert all(torch.equal(a, b) for a, b in zip(got, fs.flash_bwd(*args)))  # bit-identical repeat
+
+
+def test_flash_bwd_reads_strided_inputs(gen):
+    qkv = _r(gen, 2, 200, 3, 4, 80, scale=0.3)  # a packed (B, S, 3, H, d) projection
+    q, k, v = qkv.unbind(dim=2)
+    out, lse = fs.flash_fwd_lse_plain(q, k, v)
+    g = _r(gen, 2, 200, 8, 80)[:, :, ::2]  # not contiguous: the wrapper copies it
+    got = fs.flash_bwd(q, k, v, out, lse, g)
+    want = fs.flash_bwd_plain(*(a.float() for a in (q, k, v, out)), lse, g.float())
+    for a, w in zip(got, want):
+        assert a.is_contiguous() and _flash_close(a, w)
+
+
+def test_flash_bwd_refuses_layouts_tma_cannot_read(gen):
+    q, k, v, out, lse, g = _bwd_inputs(gen, 1, 64, 2, 40)
+    odd = torch.zeros(1, 64, 2, 44, device="cuda", dtype=torch.bfloat16)[..., :40]  # 88-byte head stride
+    for args in ((odd, k, v), (q, odd, v), (q, k, odd)):
+        with pytest.raises(ValueError, match="aligned"):
+            fs.flash_bwd(*args, out, lse, g)
+    fs.flash_bwd(q, k, v, out, lse, odd)  # g is copied into a layout TMA reads
+
+
 def test_flash_bwd_is_deterministic(gen):
     args = _bwd_inputs(gen, 2, 192, 2, 80)
     first = fs.flash_bwd(*args)
@@ -235,6 +306,8 @@ def test_flash_bwd_refuses_unequal_lengths(gen):
 @pytest.mark.parametrize("diff,S,H,d", [
     (fs.flash_sdpa_diff, 100, 2, 40), (fs.flash_sdpa_diff, 128, 2, 80),
     (fs.flash_sdpa_stream_diff, 130, 1, 512),
+    (fs.flash_sdpa_diff, 333, 3, 40), (fs.flash_sdpa_diff, 1000, 2, 80),
+    (fs.flash_sdpa_stream_diff, 77, 1, 512),
 ])
 def test_autograd_functions_match_autograd_through_plain(gen, diff, S, H, d):
     # the fault this guards against: a kernel output written into a fresh

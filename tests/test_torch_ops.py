@@ -268,30 +268,73 @@ def test_wrappers_reject_devices_without_a_kernel():
         tfused.fused_cross_ff(torch.zeros(1, 8, 16, device="meta"), {}, 2)
 
 
-@pytest.mark.parametrize("what", ["offset", "seq_stride", "head_stride", "inner_stride"])
+@pytest.mark.parametrize("what", ["offset", "seq_stride", "head_stride", "inner_stride",
+                                  "g_offset", "g_seq_stride", "d512_offset", "d512_seq_stride",
+                                  "d512_inner_stride"])
 def test_flash_wrapper_refuses_layouts_tma_cannot_read(what):
-    # the wgmma forward reads q, k, v in place through TMA tensor maps: the
-    # data 16-byte aligned, every stride but the head dim's a multiple of 8
-    # elements (16 bytes), unit stride on the head dim
-    base = torch.zeros(2, 16, 2, 48, dtype=torch.bfloat16)
-    bad = {
-        "offset": base[..., 4:44],                        # 8-byte offset
-        "seq_stride": torch.zeros(2, 16, 2 * 40 + 4, dtype=torch.bfloat16)[..., :80].reshape(2, 16, 2, 40),
-        "head_stride": torch.zeros(2, 16, 2, 44, dtype=torch.bfloat16)[..., :40],
-        "inner_stride": torch.zeros(2, 16, 2, 80, dtype=torch.bfloat16)[..., ::2],
+    # the kernels read q, k, v (and the backward its g) in place through TMA
+    # tensor maps: the data 16-byte aligned, every stride but the head dim's
+    # a multiple of 8 elements (16 bytes), unit stride on the head dim
+    bf = torch.bfloat16
+    base = torch.zeros(2, 16, 2, 48, dtype=bf)
+    wide = torch.zeros(2, 16, 1, 520, dtype=bf)
+    name, d, bad = {
+        "offset": ("q", 40, base[..., 4:44]),                        # 8-byte offset
+        "seq_stride": ("q", 40, torch.zeros(2, 16, 2 * 40 + 4, dtype=bf)[..., :80].reshape(2, 16, 2, 40)),
+        "head_stride": ("q", 40, torch.zeros(2, 16, 2, 44, dtype=bf)[..., :40]),
+        "inner_stride": ("q", 40, torch.zeros(2, 16, 2, 80, dtype=bf)[..., ::2]),
+        # an output gradient that is a view into a wider buffer
+        "g_offset": ("g", 80, torch.zeros(2, 16, 2, 88, dtype=bf)[..., 4:84]),
+        "g_seq_stride": ("g", 80, torch.zeros(2, 16, 2 * 80 + 4, dtype=bf)[..., :160].reshape(2, 16, 2, 80)),
+        # the VAE's single head of 512
+        "d512_offset": ("q", 512, wide[..., 4:516]),
+        "d512_seq_stride": ("k", 512, torch.zeros(2, 16, 516, dtype=bf)[..., :512].reshape(2, 16, 1, 512)),
+        "d512_inner_stride": ("v", 512, torch.zeros(2, 16, 1, 1024, dtype=bf)[..., ::2]),
     }[what]
-    assert bad.shape == (2, 16, 2, 40)
-    with pytest.raises(ValueError, match="aligned|unit stride"):
-        tflash._check_tma_layout("q", bad)
+    assert bad.shape[:2] == (2, 16) and bad.shape[-1] == d
+    with pytest.raises(ValueError, match=f"{name} must.*(aligned|unit stride)"):
+        tflash._check_tma_layout(name, bad)
     tflash._check_tma_layout("q", base[..., :40])  # 96-byte head stride: fine
-    packed = torch.zeros(2, 16, 3, 2, 40, dtype=torch.bfloat16)  # a packed qkv projection
+    tflash._check_tma_layout("q", wide[..., :512])
+    packed = torch.zeros(2, 16, 3, 2, 40, dtype=bf)  # a packed qkv projection
     for t in packed.unbind(dim=2):
         tflash._check_tma_layout("q", t)
+    assert tflash._check_tma_layout("g", bad.contiguous()) is None  # what flash_bwd hands its kernel
+
+
+@pytest.mark.parametrize("B,S,H,d", [(1, 256, 2, 40), (1, 256, 2, 80)])
+def test_flash_bwd_with_bf16_p_and_ds_stays_within_the_kernel_limit(B, S, H, d):
+    # The CUDA backward hands p and ds to the tensor cores as bf16 (8
+    # significant bits) where the plain version keeps f32. This copy of the
+    # formula rounds them at the same places (p for dv only; ds, formed from
+    # the unrounded p, for dq and dk) on unit-scale bf16 inputs and must stay
+    # within the kernel's limit on the card, 2^-6 of each output's max |.|:
+    # independent rounding errors of 2^-9 average out over the S terms of a
+    # sum, so the worst element moves by a few percent of that limit.
+    rng = np.random.RandomState(0)
+    q, k, v, g = (T(_rand(rng, B, S, H, d)).bfloat16() for _ in range(4))
+    out, lse = tflash.flash_fwd_lse_plain(q, k, v)
+    want = tflash.flash_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse, g.float())
+
+    bf16 = lambda x: x.bfloat16().float()  # noqa: E731
+    scale = d**-0.5
+    qf, kf, vf, gf = q.float(), k.float(), v.float(), g.float()
+    p = torch.exp(torch.einsum("bqhd,bkhd->bhqk", qf, kf) * scale - lse[..., None])
+    dp = torch.einsum("bqhd,bkhd->bhqk", gf, vf)
+    ds = bf16(p * (dp - tflash._delta(out, g)[..., None]))
+    got = (torch.einsum("bhqk,bkhd->bqhd", ds, kf) * scale,
+           torch.einsum("bhqk,bqhd->bkhd", ds, qf) * scale,
+           torch.einsum("bhqk,bqhd->bkhd", bf16(p), gf))
+    for name, a, w in zip(("dq", "dk", "dv"), got, want):
+        limit = 2**-6 * w.float().abs().max().item()
+        err = (a.bfloat16().float() - w.float()).abs().max().item()  # rounded as the kernel's output
+        assert err <= limit, f"{name}: {err:.4g} over {limit:.4g}"
 
 
 def test_wgmma_kernel_serves_the_unet_head_dims_by_default():
-    assert tflash.WGMMA_HEAD_DIMS == (40, 80)
-    assert set(tflash.WGMMA_HEAD_DIMS) < set(tflash.KERNEL_HEAD_DIMS)
+    assert tflash.KERNEL_HEAD_DIMS == (40, 80, 512) and tflash.BWD_HEAD_DIMS == (40, 80)
+    # every forward goes one route: the same checks, one C signature
+    assert _build.SIGNATURES["pv_flash_fwd_stream"] == _build.SIGNATURES["pv_flash_fwd_wgmma"]
     # one configuration of each wgmma kernel is built: the C entry points
     # take no selector after the shapes and strides, only the stream
     assert _build.SIGNATURES["pv_flash_fwd_wgmma"][-2:] == [_build.L, _build.P]
