@@ -6,8 +6,9 @@ Phases (each one fails the run on error):
   1. device: a CUDA card is required; prints its name and power limit.
   2. build:  compiles photoverse_tpu_torch/csrc/*.cu with nvcc (sm_90a).
   3. kernels: each hand-written kernel against its plain PyTorch version on
-     the card at the shapes the main paths give it (and at ragged lengths
-     for the flash forwards and the flash backward), with CUDA-event times
+     the card at the shapes the main paths give it, the server's largest
+     batch included (and at ragged lengths for the flash forwards and the
+     flash backward), with CUDA-event times
      beside the bound from ops/bounds.py and one PyTorch library call on the
      same inputs; planted faults show that each kernel's limit catches them.
   4. pipeline: SD-1.5-width models with random weights from a numpy seed,
@@ -15,7 +16,23 @@ Phases (each one fails the run on error):
      guidance 1, two requests with their own noise seeds), then a guidance-6
      run; launch counters, image checks and the deviation from the same run
      with every kernel swapped for its plain version.
-  5. train: the canonical recipe's train step at SD-1.5 width (bf16 with f32
+  5. samplers: the same models through `run_inference` once per sampler
+     name (10 steps, guidance 1, batch 1, noise and ancestral noise passed
+     in), kernels against the same run on the plain versions, with the
+     launch counts that follow each solver's number of UNet evaluations;
+     then one run with an identity mask (the fused tail must not launch)
+     and one from a noised image (the VAE encoder takes the stream kernel).
+  6. serve: a dynamic-batching PhotoVerseService on those models (the
+     --fast flags, --max_batch 4), entered at submit() with numpy examples
+     and a tokenizer made from a small synthetic vocabulary: concurrent
+     requests coalesce and equal their solo runs on a sequential service
+     within a limit that a planted fault (a row served with another row's
+     noise, or with one step of it) exceeds, for dpm and for euler_a; three
+     rows pad to bucket 4, equal their solo runs and equal the same batch
+     on the plain versions; different step counts do not coalesce; a burst of 12 mixed requests
+     from 4 threads is served whole and drained; a full queue is refused.
+     An exception in a service thread fails the run.
+  7. train: the canonical recipe's train step at SD-1.5 width (bf16 with f32
      trainable masters, flash, LoRA 128/1/0.1, lr 1e-5, a random ArcFace,
      512px uint8 batches of 4, gradient accumulation 2 with the face branch
      on each window's last micro-step: 2 rows, 10 inner steps, guidance 2,
@@ -26,15 +43,20 @@ Phases (each one fails the run on error):
      faults exceed, and every training-kernel call of that micro-step
      against its plain version on the call's own inputs.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
-is the per-kernel JSON summary.
+is the per-kernel JSON summary (`launches` from the 50-step generation or
+the training micro-steps, `serve_launches` from the serve phase's first
+coalesced batch).
 """
 
 from __future__ import annotations
 
 import contextlib
 import json
+import os
 import subprocess
 import sys
+import tempfile
+import threading
 import time
 from unittest import mock
 
@@ -78,6 +100,27 @@ CFG_ATOL = 0.1
 # 0.24 of their limit, the planted faults 64-3697 times it.
 TRAIN_LOSS_RTOL = 1e-3
 TRAIN_GRAD_RTOL = 0.015
+# serve phase: a request served in a coalesced batch against the same
+# request alone on a sequential service, in uint8 steps (of 255). The noise
+# is the same by construction; what differs is the batch size, for which
+# cuDNN and cuBLAS pick other algorithms and tile counts, and at guidance 6
+# the random-weight bf16 pipeline amplifies that rounding as it amplifies
+# the kernels' (CFG_ATOL above is 13 uint8 steps for the same reason). A
+# coalesced pair reads at most 8 steps from its solo runs under dpm, 11-12
+# under euler_a (25 steps, guidance 6) and 11 in a padded batch of 4, with a
+# mean absolute difference of 0.91-1.31 steps; a row served with another
+# row's noise reads 255 and 58-68, a row that takes another row's step noise
+# at one step of 25 reads 103 and 13.5 (step 2) or 19 and 2.4 (step 12)
+# (PERF.md, the serving slice's findings). Both measures are held.
+SERVE_SAME_U8 = 16
+SERVE_SAME_MEAN_U8 = 2.0
+# serve phase: a padded batch of the server on the kernels against the same
+# batch with every kernel swapped for its plain version, in uint8 steps:
+# CFG_ATOL of [-1, 1] is 12.75 steps, and packing each side to uint8 can
+# add one
+SERVE_PLAIN_U8 = 14
+# seconds a request thread of the serve phase may take before the run fails
+SERVE_TIMEOUT_S = 300
 
 
 def log(msg: str) -> None:
@@ -261,6 +304,9 @@ def phase_kernels(source_tpu: dict):
 
     flash_cases = [  # (B, Sq, Skv, H, d): the UNet's 64^2 and 32^2 levels, then Skv > Sq
         (2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (2, 1024, 4096, 8, 40),
+        # the server's bucket 4 at guidance 6 (UNet batch 8); batch 1 (the
+        # samplers phase) follows the ragged cases below
+        (8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80),
     ]
     for B, Sq, Skv, H, d in flash_cases:
         q = (0.3 * torch.randn(B, Sq, H, d, generator=gen, device=dev)).bfloat16()
@@ -274,15 +320,16 @@ def phase_kernels(source_tpu: dict):
         record("flash_sdpa", "cuda", wgmma_src, source_tpu["flash_sdpa"], err, tol,
                lambda: fs.flash_sdpa(q, k, v), 20, plain_ms,
                [B, Sq, Skv, H, d], bounds.flash_fwd(B, Sq, Skv, H, d), sdpa(q, k, v))
-        if Sq == Skv and d == 40:
+        if B == 2 and Sq == Skv and d == 40:
             dropped = fs.flash_sdpa(q, k[:, :-64], v[:, :-64])
             e = (dropped.float() - want).abs().max().item()
             fault(e > tol, f"flash_sdpa last 64 keys dropped: err {e:.6g} (tol {tol:.6g})")
     # lengths that are no multiple of the 64/128-row and 64-key tiles, keys
     # shorter than one tile, batch 1 and 4: the TMA boxes' zero fill and the
-    # masks of the last tile
+    # masks of the last tile; then the two levels at batch 1, as the
+    # samplers phase runs them
     for B, Sq, Skv, H, d in ((1, 1000, 4000, 8, 40), (4, 333, 77, 8, 80), (2, 4000, 1000, 8, 40),
-                             (1, 77, 77, 8, 80)):
+                             (1, 77, 77, 8, 80), (1, 4096, 4096, 8, 40), (1, 1024, 1024, 8, 80)):
         q = (0.3 * torch.randn(B, Sq, H, d, generator=gen, device=dev)).bfloat16()
         k = (0.3 * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
         v = (0.3 * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
@@ -294,19 +341,23 @@ def phase_kernels(source_tpu: dict):
         check(err <= tol and same, f"flash_sdpa ragged {[B, Sq, Skv, H, d]}: max_abs_err {err:.6g} "
               f"(tol {tol:.6g}), repeat bit-identical {same}")
 
-    B, S, H, d = 2, 4096, 1, 512  # the VAE decoder's mid-block attention
-    q, k, v = ((0.3 * torch.randn(B, S, H, d, generator=gen, device=dev)).bfloat16() for _ in range(3))
-    got = fs.flash_sdpa_stream(q, k, v)
-    want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
-    err = (got.float() - want).abs().max().item()
-    tol = FLASH_RTOL * want.abs().max().item()
-    plain_ms = _time_ms(lambda: fs.flash_sdpa_plain(q, k, v), 5)
-    record("flash_sdpa_stream", "cuda", stream_src, source_tpu["flash_sdpa_stream"], err, tol,
-           lambda: fs.flash_sdpa_stream(q, k, v), 10, plain_ms, [B, S, S, H, d],
-           bounds.flash_fwd(B, S, S, H, d), sdpa(q, k, v, label="d=512"))
-    dropped = fs.flash_sdpa_stream(q, k[:, :-32], v[:, :-32])
-    e = (dropped.float() - want).abs().max().item()
-    fault(e > tol, f"flash_sdpa_stream last 32 keys dropped: err {e:.6g} (tol {tol:.6g})")
+    # the VAE's mid-block attention: decode of two requests (the pipeline
+    # phase), of the server's bucket 4, of one request (the samplers phase)
+    S, H, d = 4096, 1, 512
+    for B in (2, 4, 1):
+        q, k, v = ((0.3 * torch.randn(B, S, H, d, generator=gen, device=dev)).bfloat16() for _ in range(3))
+        got = fs.flash_sdpa_stream(q, k, v)
+        want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
+        err = (got.float() - want).abs().max().item()
+        tol = FLASH_RTOL * want.abs().max().item()
+        plain_ms = _time_ms(lambda: fs.flash_sdpa_plain(q, k, v), 5)
+        record("flash_sdpa_stream", "cuda", stream_src, source_tpu["flash_sdpa_stream"], err, tol,
+               lambda: fs.flash_sdpa_stream(q, k, v), 10, plain_ms, [B, S, S, H, d],
+               bounds.flash_fwd(B, S, S, H, d), sdpa(q, k, v, label="d=512" if B == 2 else None))
+        if B == 2:
+            dropped = fs.flash_sdpa_stream(q, k[:, :-32], v[:, :-32])
+            e = (dropped.float() - want).abs().max().item()
+            fault(e > tol, f"flash_sdpa_stream last 32 keys dropped: err {e:.6g} (tol {tol:.6g})")
     # keys longer than queries, a last tile shorter than a 64-row box, fewer
     # rows than one block
     for B, Sq, Skv, H, d in ((1, 1000, 4000, 1, 512), (1, 77, 77, 1, 512)):
@@ -324,8 +375,10 @@ def phase_kernels(source_tpu: dict):
               f"flash_sdpa_stream ragged {[B, Sq, Skv, H, d]}: max_abs_err {err:.6g} (tol {tol:.6g}), lse err "
               f"{lse_err:.3g} (tol {LSE_ATOL:.3g}), lse variant and repeat bit-identical {same}")
 
-    for K in (1, 5):  # token_index=0 gives K=1; the training path K=5
-        B, S, C, H, St, F = 2, 4096, 320, 8, 77, 1280
+    # token_index=0 gives K=1, the training path K=5; batch 8 is the
+    # server's bucket 4 at guidance 6
+    for B, K in ((2, 1), (2, 5), (8, 1)):
+        S, C, H, St, F = 4096, 320, 8, 77, 1280
         h, bundle = _fused_inputs(gen, B, S, C, H, St, K, F, dev)
         got = fb.fused_cross_ff(h, bundle, H)
         want = fb.reference_cross_ff(h.float(), bundle, H)
@@ -335,7 +388,7 @@ def phase_kernels(source_tpu: dict):
                source_tpu["fused_cross_ff"], err, FUSED_ATOL, lambda: fb.fused_cross_ff(h, bundle, H), 10,
                plain_ms, [B, S, C, H, St, K, F],
                bounds.fused_cross_ff(B, S, C, H, St, K, F))  # no single library call computes it
-        if K == 1:
+        if (B, K) == (2, 1):
             kT, vT, kI, vI = bundle["ctx"]
             no_id = dict(bundle, ctx=(kT, vT, kI, torch.zeros_like(vI)))
             e = (fb.fused_cross_ff(h, no_id, H).float() - want).abs().max().item()
@@ -464,14 +517,12 @@ def plain_kernels():
         yield
 
 
-def phase_pipeline():
-    """The port's main path at SD-1.5 width: kernels, then plain versions."""
+def serving_models():
+    """SD-1.5-width models with random weights from a numpy seed, built with
+    the serving flags (bf16, flash, bf16 scores and norms, fused blocks)."""
     import torch
 
-    from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
-    from photoverse_tpu_torch.engine.inference import run_inference
     from photoverse_tpu_torch.models.assembly import build_models, init_params
-    from photoverse_tpu_torch.ops import _build
 
     t0 = time.perf_counter()
     models = init_params(build_models(
@@ -480,6 +531,16 @@ def phase_pipeline():
     torch.cuda.synchronize()
     n_params = sum(p.numel() for p in models.parameters())
     log(f"pipeline: SD-1.5-width models ({n_params} params, bf16) built in {time.perf_counter() - t0:.1f}s")
+    return models
+
+
+def phase_pipeline(models):
+    """The port's main path at SD-1.5 width: kernels, then plain versions."""
+    import torch
+
+    from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
+    from photoverse_tpu_torch.engine.inference import run_inference
+    from photoverse_tpu_torch.ops import _build
 
     B, steps, cfg_steps = 2, 50, 10
     example = _example(B, seed=1)
@@ -534,6 +595,369 @@ def phase_pipeline():
                              plain_s_per_image=plain_secs / B, ok=good)
     log(f"pipeline: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     return results, ok
+
+
+def _serving_counts(evals: int, fused: bool = True, stream: int = 1) -> dict:
+    """Launches of one generation at SD-1.5 width, 512px: per UNet
+    evaluation 10 flash self-attention layers (the 64^2 and 32^2 levels) and
+    5 fused block tails (C=320), and the VAE's mid-block attention."""
+    want = {"flash_sdpa": 10 * evals, "flash_sdpa_stream": stream}
+    if fused:
+        want["fused_cross_ff"] = 5 * evals
+    return want
+
+
+def phase_samplers(models):
+    """Every sampler name through run_inference, kernels against plain."""
+    import torch
+
+    from photoverse_tpu_torch.core.schedulers import SCHEDULER_NAMES, make_solver
+    from photoverse_tpu_torch.engine.inference import run_inference
+    from photoverse_tpu_torch.ops import _build
+
+    steps = 10
+    example = _example(1, seed=2)
+    rng = np.random.RandomState(200)
+    noise = rng.randn(1, 64, 64, 4).astype(np.float32)
+    ok = True
+
+    def both(label, solver, want, **kw):
+        """One run on the kernels (launches counted), one on the plain
+        versions; the phase's checks on the pair."""
+        nonlocal ok
+        kw = dict(guidance_scale=1.0, token_index=0, latent_size=64, initial_noise=noise, **kw)
+        if solver.is_ancestral:
+            kw["ancestral_noise"] = np.random.RandomState(201).randn(
+                solver.num_steps, 1, 64, 64, 4).astype(np.float32)
+        _build.reset_launch_counts()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        imgs = run_inference(models, solver, example, **kw)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t
+        counts = dict(_build.launch_counts)
+        _build.reset_launch_counts()
+        with plain_kernels():
+            ref = run_inference(models, solver, example, **kw)
+        plain_counts = dict(_build.launch_counts)
+        diff = (imgs - ref).abs().max().item()
+        sound = (bool(torch.isfinite(imgs).all()) and tuple(imgs.shape) == (1, 512, 512, 3)
+                 and bool(imgs.min() >= -1 and imgs.max() <= 1))
+        good = sound and counts == want and not plain_counts and diff <= G1_ATOL
+        ok &= good
+        log(f"samplers {label}: {solver.num_steps} UNet evaluations, {secs:.3f}s, launches {counts}"
+            f"{'' if counts == want else f' (want {want})'}, max abs pixel diff vs plain {diff:.6g} "
+            f"(tol {G1_ATOL}) {'OK' if good else 'FAIL'}")
+        return imgs
+
+    for name in SCHEDULER_NAMES:
+        solver = make_solver(models.schedule, name, steps)
+        both(name, solver, _serving_counts(solver.num_steps))
+
+    # an identity mask over the right half: every block takes the masked
+    # route, so the fused tail launches nothing and flash still does
+    solver = make_solver(models.schedule, "dpm", steps)
+    mask = np.zeros((1, 512, 512), np.float32)
+    mask[:, :, 256:] = 1.0
+    free = run_inference(models, solver, example, guidance_scale=1.0, latent_size=64, initial_noise=noise)
+    masked = both("dpm with ip_mask", solver, _serving_counts(steps, fused=False), ip_mask=mask)
+    moved = (masked - free).abs().max().item()
+    log(f"  the mask moves the image by {moved:.6g} {'OK' if moved > G1_ATOL else 'FAIL'}")
+    ok &= moved > G1_ATOL
+
+    # from a noised image: the VAE encoder's mid-block attention is a second
+    # launch of the stream kernel
+    px = np.clip(rng.randn(1, 512, 512, 3) * 0.5, -1, 1).astype(np.float32)
+    vae_noise = rng.randn(1, 64, 64, 4).astype(np.float32)
+    example = dict(example, pixel_values=px)
+    noised = both("dpm from_noised_image", solver, _serving_counts(steps, stream=2),
+                  from_noised_image=True, vae_noise=vae_noise)
+    moved = (noised - free).abs().max().item()
+    log(f"  the image start moves the image by {moved:.6g} {'OK' if moved > G1_ATOL else 'FAIL'}")
+    ok &= moved > G1_ATOL
+    return ok
+
+
+def _synthetic_tokenizer(folder: str):
+    """A CLIP-style tokenizer from a small synthetic vocabulary (letters,
+    a few merges, the placeholder, BOS/EOS) written to `folder`, with the
+    text encoder's 77 positions."""
+    from photoverse_tpu_torch.data.tokenizer import CLIPTokenizer
+
+    vocab = {}
+    for c in "abcdefghijklmnopqrstuvwxyz":
+        vocab[c] = len(vocab)
+        vocab[c + "</w>"] = len(vocab)
+    merges = ["p h", "ph o", "pho t", "phot o</w>", "o f</w>", "t h", "th e</w>"]
+    for m in merges:
+        vocab.setdefault(m.replace(" ", ""), len(vocab))
+    vocab["*</w>"] = len(vocab)
+    vocab["<|startoftext|>"] = len(vocab)
+    vocab["<|endoftext|>"] = len(vocab)
+    d = os.path.join(folder, "tokenizer")
+    os.makedirs(d, exist_ok=True)
+    with open(os.path.join(d, "vocab.json"), "w") as f:
+        json.dump(vocab, f)
+    with open(os.path.join(d, "merges.txt"), "w") as f:
+        f.write("#version: 0.2\n" + "\n".join(merges))
+    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
+        json.dump({"model_max_length": 77}, f)
+    return CLIPTokenizer.from_pretrained(folder)
+
+
+def phase_serve(models):
+    """The dynamic-batching service at SD-1.5 width, entered at submit()."""
+    import torch
+
+    from photoverse_tpu_torch.cli import serve
+    from photoverse_tpu_torch.data.prompts import prepare_prompt
+    from photoverse_tpu_torch.ops import _build
+
+    torch.cuda.reset_peak_memory_stats()
+    with tempfile.TemporaryDirectory() as tmp:
+        tokenizer = _synthetic_tokenizer(tmp)
+    flags = ["--model_path", "unused", "--fast", "--resolution", "512"]
+    bat = serve.PhotoVerseService(serve.build_parser().parse_args(
+        flags + ["--dynamic_batching", "--max_batch", "4", "--batch_wait_ms", "500"]), models=(tokenizer, models))
+    seq = serve.PhotoVerseService(serve.build_parser().parse_args(flags), models=(tokenizer, models))
+    ok = True
+
+    def check(good, what):
+        nonlocal ok
+        ok &= bool(good)
+        log(f"serve: {what} {'OK' if good else 'FAIL'}")
+
+    def example(n, seed):
+        """What _prepare makes of a request, without Pillow: the prompt
+        through the tokenizer, a CLIP-scale photo from the seed."""
+        p = prepare_prompt(tokenizer, "a photo of a {}", num_of_samples=n)
+        photo = np.random.RandomState(1000 + seed).randn(1, 224, 224, 3).astype(np.float32)
+        return {
+            "pixel_values": np.zeros((n, 512, 512, 3), np.float32),
+            "pixel_values_clip": np.repeat(photo, n, axis=0),
+            "text_input_ids": p["text_input_ids"].astype(np.int32),
+            "concept_placeholder_idx": p["concept_placeholder_idx"].reshape(n).astype(np.int32),
+            "negative_text_input_ids": np.asarray(tokenizer([""] * n), np.int32),
+        }
+
+    def fire(service, requests):
+        """Submit (n, seed, key) requests from one thread each; the results
+        in order, an exception in place of a failed one."""
+        out = [None] * len(requests)
+
+        def one(i, n, seed, key):
+            try:
+                out[i] = service.submit(example(n, seed), n, seed, key)
+            except BaseException as e:  # noqa: BLE001 - reported by the caller
+                out[i] = e
+
+        threads = [threading.Thread(target=one, args=(i, *r), daemon=True) for i, r in enumerate(requests)]
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join(SERVE_TIMEOUT_S)
+        if any(t.is_alive() for t in threads):
+            raise RuntimeError("serve: a request did not return in time")
+        return out
+
+    def u8diff(a, b):
+        """(largest, mean) absolute difference of two uint8 images."""
+        d = np.abs(a.astype(np.int32) - b.astype(np.int32))
+        return int(d.max()), round(float(d.mean()), 4)
+
+    def same_image(d):
+        return d[0] <= SERVE_SAME_U8 and d[1] <= SERVE_SAME_MEAN_U8
+
+    same_tol = f"tol {SERVE_SAME_U8}, {SERVE_SAME_MEAN_U8}"
+
+    ids = example(1, 0)["text_input_ids"][0]
+    check(ids[0] == tokenizer.bos_token_id and ids[6] == tokenizer.eos_token_id
+          and example(1, 0)["concept_placeholder_idx"][0] == 5, f"tokenizer: 'a photo of a *' -> {ids[:8].tolist()}")
+
+    t0 = time.perf_counter()
+    bat.warmup(steps=2)
+    seq.warmup(steps=2)
+    log(f"serve: warm-up of buckets 1, 2, 4 and the sequential service in {time.perf_counter() - t0:.1f}s")
+
+    serve_counts = {}
+    for scheduler in ("dpm", "euler_a"):  # (a) and (b)
+        key = (25, 6.0, scheduler)
+        _build.reset_launch_counts()
+        pair = fire(bat, [(1, 3, key), (1, 7, key)])
+        counts = dict(_build.launch_counts)
+        if scheduler == "dpm":
+            serve_counts = counts
+        failed = [r for r in pair if isinstance(r, BaseException)]
+        if failed:
+            check(False, f"{scheduler}: coalesced requests failed: {failed[0]!r}")
+            continue
+        solo = [seq.submit(example(1, s), 1, s, key) for s in (3, 7)]
+        same = [u8diff(p["images"], q["images"]) for p, q in zip(pair, solo)]
+        apart = u8diff(pair[0]["images"], pair[1]["images"])
+        want = _serving_counts(25)
+        check([p["batch_rows"] for p in pair] == [2, 2] and counts == want
+              and all(map(same_image, same)) and not same_image(apart)
+              and pair[0]["images"].shape == (1, 512, 512, 3),
+              f"{scheduler}, 25 steps, guidance 6: seeds 3 and 7 coalesced (batch_rows "
+              f"{[p['batch_rows'] for p in pair]}), launches {counts} (want {want}); coalesced vs solo, "
+              f"(largest, mean) of 255: {same} ({same_tol}), seed 3 vs seed 7 {apart}; latency "
+              f"{pair[0]['latency_s']:.3f}s coalesced, {solo[0]['latency_s']:.3f}s solo")
+
+        def planted(what, held=True, **patches):
+            """Serve the pair again with the service patched; the fault is
+            caught when row 1 no longer passes for its solo run. A fault
+            that is not `held` is read and logged only."""
+            nonlocal ok
+            with contextlib.ExitStack() as stack:
+                for name, fn in patches.items():
+                    stack.enter_context(mock.patch.object(bat, name, fn))
+                bad = fire(bat, [(1, 3, key), (1, 7, key)])
+            wrong = (-1, -1.0) if isinstance(bad[1], BaseException) else u8diff(bad[1]["images"], solo[1]["images"])
+            caught = wrong[0] >= 0 and not same_image(wrong)
+            ok &= caught or not held
+            log(f"  planted fault, {what}: {wrong} of 255 from its solo run ({same_tol}): "
+                f"{'caught' if caught else 'NOT CAUGHT' if held else 'not caught (below what this comparison sees)'}")
+
+        real = bat._make_noise
+        planted("row 1 served with row 0's noise", _make_noise=lambda seed, n: real(3, n))
+        if scheduler == "euler_a":
+            # milder ones: row 1 takes row 0's step noise at one step only.
+            # At step 22 little noise is left to add and the fault reads what
+            # another batch size's rounding reads: it is read and logged,
+            # not held (the CPU tests hold a late step in f32, at 2 / 255)
+            real_rows = bat._make_row_noise
+            for at in (2, 12, 22):
+                def one_step_wrong(seed, n, solver, at=at):
+                    z = real_rows(seed, n, solver).clone()
+                    if seed == 7:
+                        z[at] = real_rows(3, n, solver)[at]
+                    return z
+
+                planted(f"row 1 takes row 0's step noise at step {at} of 25 only", held=at < 22,
+                        _make_row_noise=one_step_wrong)
+
+    # (c) three rows pad to bucket 4: UNet batch 8, the largest shapes the
+    # server gives the kernels. Each row against its solo run, and the whole
+    # batch against the same batch on the kernels' plain versions.
+    key = (10, 6.0, "dpm")
+    before = bat.health()["stats"]
+    _build.reset_launch_counts()
+    trio = fire(bat, [(1, s, key) for s in (1, 2, 3)])
+    counts = dict(_build.launch_counts)
+    after = bat.health()["stats"]
+    good = (not any(isinstance(r, BaseException) for r in trio) and [r["batch_rows"] for r in trio] == [3, 3, 3]
+            and after["padded_rows"] - before["padded_rows"] == 1 and after["batches"] - before["batches"] == 1
+            and counts == _serving_counts(10))
+    check(good, f"three requests ran as one batch of bucket 4: padded_rows +{after['padded_rows'] - before['padded_rows']}, "
+          f"batches +{after['batches'] - before['batches']}, launches {counts}")
+    if good:
+        solo = [seq.submit(example(1, s), 1, s, key) for s in (1, 2, 3)]
+        same = [u8diff(r["images"], q["images"]) for r, q in zip(trio, solo)]
+        _build.reset_launch_counts()
+        with plain_kernels():
+            plain = fire(bat, [(1, s, key) for s in (1, 2, 3)])
+        plain_counts = dict(_build.launch_counts)
+        failed = [r for r in plain if isinstance(r, BaseException)]
+        vs_plain = [(-1, -1.0)] if failed else [u8diff(r["images"], q["images"]) for r, q in zip(trio, plain)]
+        check(all(map(same_image, same)) and not failed and not plain_counts
+              and [r["batch_rows"] for r in plain] == [3, 3, 3]
+              and all(0 <= d[0] <= SERVE_PLAIN_U8 for d in vs_plain),
+              f"bucket 4, 10 steps, guidance 6, (largest, mean) of 255: rows vs their solo runs {same} "
+              f"({same_tol}); kernels vs the same batch on plain versions {vs_plain} (tol {SERVE_PLAIN_U8}), "
+              f"plain run launches {plain_counts or 0}")
+
+    # (d) different step counts do not coalesce
+    two = fire(bat, [(1, 5, (10, 6.0, "dpm")), (1, 5, (12, 6.0, "dpm"))])
+    check(not any(isinstance(r, BaseException) for r in two) and [r["batch_rows"] for r in two] == [1, 1],
+          "requests of 10 and 12 steps ran apart")
+
+    # (e) a burst of 12 mixed requests from 4 threads
+    before = bat.health()["stats"]
+    N = 12
+    reqs = [(1 + (i % 2), 100 + i, (25 if i % 3 else 20, 6.0, "dpm")) for i in range(N)]
+    done, lock = [], threading.Lock()
+
+    def client(w):
+        for i in range(w, N, 4):
+            n, seed, key = reqs[i]
+            try:
+                r = bat.submit(example(n, seed), n, seed, key)
+            except BaseException as e:  # noqa: BLE001 - reported below
+                r = e
+            with lock:
+                done.append(r)
+
+    # the worker's host time per batch (enqueueing a whole trajectory), to
+    # set beside the latency: where they are equal the host sets the pace
+    enqueue, real_run = [], bat._run
+
+    def timed_run(*a):
+        t = time.perf_counter()
+        out = real_run(*a)
+        enqueue.append(time.perf_counter() - t)
+        return out
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    clients = [threading.Thread(target=client, args=(w,), daemon=True) for w in range(4)]
+    with mock.patch.object(bat, "_run", timed_run):
+        for t in clients:
+            t.start()
+        for t in clients:
+            t.join(SERVE_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    drained = bat.drain(timeout_s=60)
+    after = bat.health()["stats"]
+    errors = [r for r in done if isinstance(r, BaseException)]
+    served = [r for r in done if not isinstance(r, BaseException)]
+    images = sum(len(r["images"]) for r in served)
+    rows = after["rows"] - before["rows"]
+    batches = after["batches"] - before["batches"]
+    check(len(done) == N and not errors and images == sum(r[0] for r in reqs) and rows == images and drained
+          and after["rejected"] == before["rejected"],
+          f"burst of {N} requests ({images} images, steps 20 and 25, guidance 6) from 4 threads: "
+          f"{len(errors)} errors, stats.rows +{rows}, drained {drained}")
+    if served:
+        lat = sorted(r["latency_s"] for r in served)
+        log(f"serve burst: {wall:.3f}s wall, {len(served) / wall:.4f} requests/s, {images / wall:.4f} images/s, "
+            f"latency_s p50 {lat[len(lat) // 2]:.3f} p95 {lat[min(len(lat) - 1, int(0.95 * len(lat)))]:.3f} "
+            f"max {lat[-1]:.3f}, {batches} batches, mean rows per batch {rows / max(batches, 1):.3f}, "
+            f"padded rows +{after['padded_rows'] - before['padded_rows']}; the worker's host time to enqueue "
+            f"a batch: mean {np.mean(enqueue):.3f}s, sum {np.sum(enqueue):.3f}s of the wall")
+
+    # device-busy share of serving, from a shorter burst under the profiler
+    # (device events only; the profiler slows the host, so the share is a
+    # lower bound of the unprofiled one)
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fire(bat, [(1, 200 + i, (10, 6.0, "dpm")) for i in range(4)])
+        torch.cuda.synchronize()
+        prof_wall = time.perf_counter() - t0
+    evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    attr = "self_device_time_total" if evs and hasattr(evs[0], "self_device_time_total") else "self_cuda_time_total"
+    busy = sum(getattr(e, attr) for e in evs) / 1e6
+    log("serve: device busy " + (f"{busy:.3f}s of {prof_wall:.3f}s wall ({busy / prof_wall:.1%}) over four "
+        "coalesced 10-step requests under the profiler" if busy > 0 else "not measured (no device events)"))
+
+    # (f) a full queue is refused
+    bat.args.max_queue = 0
+    try:
+        bat.submit(example(1, 9), 1, 9, (10, 6.0, "dpm"))
+        refused = False
+    except serve.ServiceOverloaded:
+        refused = True
+    finally:
+        bat.args.max_queue = 64
+    check(refused and bat.health()["stats"]["rejected"] == after["rejected"] + 1,
+          "max_queue 0 raises ServiceOverloaded")
+
+    errs = bat.thread_errors + seq.thread_errors
+    check(not errs, f"no exception in a service thread ({len(errs)}{': ' + repr(errs[0]) if errs else ''})")
+    log(f"serve: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    return serve_counts, ok
 
 
 def _train_batch(B: int, n_face: int, seed: int):
@@ -831,13 +1255,20 @@ def main() -> int:
 
     phase_build()
     rows = phase_kernels(TPU_KERNELS)
-    results, pipe_ok = phase_pipeline()
+    models = serving_models()
+    results, pipe_ok = phase_pipeline(models)
+    samplers_ok = phase_samplers(models)
+    serve_launches, serve_ok = phase_serve(models)
+    del models
     train_launches, train_ok = phase_train()
     # each kernel's launches from the run of the path it lies on: the
-    # 50-step generation, or the four training micro-steps
+    # 50-step generation, or the four training micro-steps; the serving
+    # kernels also from the server's first coalesced batch
     launches = {n: results["g1"]["counts"].get(n, 0) if n in SERVING_KERNELS else train_launches.get(n, 0)
                 for n in TPU_KERNELS}
-    ok = all(r["ok"] for r in rows) and pipe_ok and train_ok and all(v > 0 for v in launches.values())
+    ok = (all(r["ok"] for r in rows) and pipe_ok and samplers_ok and serve_ok and train_ok
+          and all(v > 0 for v in launches.values())
+          and all(serve_launches.get(n, 0) > 0 for n in SERVING_KERNELS))
     summary = {"kernels": []}
     for name in TPU_KERNELS:
         mine = [r for r in rows if r["name"] == name and "ms" in r]
@@ -845,6 +1276,7 @@ def main() -> int:
         summary["kernels"].append({
             "name": name, "route": first["route"], "source": first["source"],
             "replaces": first["replaces"], "launches": launches[name],
+            "serve_launches": serve_launches.get(name, 0),
             "max_abs_err": max(r["max_abs_err"] for r in mine),
             "ms": first["ms"], "plain_ms": first["plain_ms"], "bound_ms": first["bound_ms"],
             "bound_by": first["bound_by"], "library_ms": first["library_ms"],

@@ -19,15 +19,22 @@ Train mode (`forward(..., train=True, fusion_u=..., dropout_generator=...)`):
 stochastic fusion per cross-attention layer from the caller's uniforms
 (`fusion_u`, one per layer in call order) and LoRA dropout drawn from the
 caller's generator.
+
+`ip_mask` (B, Hm, Wm) in [0, 1] restricts where the identity tokens act:
+each block resizes it to its own latent resolution and computes text
+attention + 2 x identity attention x mask, with no stochastic fusion and
+without the fused tail.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import functools
 import itertools
 import math
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 import torch.nn.functional as F
@@ -38,6 +45,10 @@ from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa, flash_sdpa_diff
 from photoverse_tpu_torch.ops.fused_block import fused_cross_ff
 
 __all__ = ["UNetConfig", "UNet2DCondition", "timestep_embedding"]
+
+# weight of the identity branch on the masked route (the JAX package's
+# UNetConfig.fusion_scale default, which no entry point changes)
+MASK_FUSION_SCALE = 2.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -72,6 +83,46 @@ def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10
     )
     args = timesteps.float()[:, None] * freqs[None, :]
     return torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+
+
+@functools.lru_cache(maxsize=None)
+def _cubic_resize_matrix(n_in: int, n_out: int) -> np.ndarray:
+    """(n_in, n_out) f32 weights of a 1-D cubic resize as jax.image.resize
+    computes it: the Keys kernel with a = -0.5 at half-pixel centres,
+    stretched by n_in / n_out when that shrinks (so it low-pass filters
+    before it samples), each output's weights normalised to sum 1.
+    F.interpolate(mode="bicubic") is another function (a = -0.75, no
+    stretch)."""
+    f32 = np.float32
+    inv_scale = f32(1.0) / (f32(n_out) / f32(n_in))
+    kernel_scale = max(inv_scale, f32(1.0))
+    sample = (np.arange(n_out, dtype=f32) + f32(0.5)) * inv_scale - f32(0.5)
+    x = np.abs(sample[None, :] - np.arange(n_in, dtype=f32)[:, None]) / kernel_scale
+    w = ((f32(1.5) * x - f32(2.5)) * x) * x + f32(1.0)
+    w = np.where(x >= 1.0, ((f32(-0.5) * x + f32(2.5)) * x - f32(4.0)) * x + f32(2.0), w)
+    w = np.where(x >= 2.0, f32(0.0), w).astype(f32)
+    total = w.sum(axis=0, keepdims=True)
+    w = np.where(np.abs(total) > 1000.0 * np.finfo(f32).eps, w / np.where(total != 0, total, 1), 0)
+    inside = (sample >= -0.5) & (sample <= n_in - 0.5)
+    return np.where(inside[None, :], w, 0).astype(f32)
+
+
+def _downsample_ip_mask(ip_mask: Optional[torch.Tensor], B: int, Hh: int, Ww: int) -> Optional[torch.Tensor]:
+    """(B, Hm, Wm) -> (B, Hh*Ww) f32, resized to a block's latent
+    resolution by two separable cubic matrices (an axis of equal size is
+    left alone)."""
+    if ip_mask is None:
+        return None
+    m = ip_mask.float()
+    if m.shape[0] != B:
+        raise ValueError(f"ip_mask has {m.shape[0]} rows for a batch of {B}")
+    if m.shape[1] != Hh:
+        wh = torch.from_numpy(_cubic_resize_matrix(m.shape[1], Hh)).to(m.device)
+        m = torch.einsum("bhw,hH->bHw", m, wh)
+    if m.shape[2] != Ww:
+        ww = torch.from_numpy(_cubic_resize_matrix(m.shape[2], Ww)).to(m.device)
+        m = torch.einsum("bhw,wW->bhW", m, ww)
+    return m.reshape(B, Hh * Ww)
 
 
 class SelfAttention(nn.Module):
@@ -110,7 +161,8 @@ class _IPProcessor(nn.Module):
 
 class DualCrossAttention(nn.Module):
     """attn2: text cross-attention + identity cross-attention; eval fusion
-    (sum) or, in train mode, stochastic fusion from `fusion_u`. Returns
+    (sum) or, in train mode, stochastic fusion from `fusion_u`; with
+    `ip_mask` (B, S) text + MASK_FUSION_SCALE x identity x mask. Returns
     (out, v_ip_norm (B, H, K))."""
 
     def __init__(self, ch: int, heads: int, cfg: UNetConfig):
@@ -135,13 +187,19 @@ class DualCrossAttention(nn.Module):
                 split(self.to_v(text_ctx, train, generator)),
                 split(p.to_k_ip[0](id_ctx)), split(p.to_v_ip[0](id_ctx)))
 
-    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, train=False, fusion_u=None, generator=None):
+    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, train=False, fusion_u=None, generator=None,
+                ip_mask=None):
         B, S, C = x.shape
         q = self.to_q(x, train, generator).reshape(B, S, self.heads, C // self.heads)
         if ctx_kv is None:
             ctx_kv = self.context_kv(text_ctx, id_ctx, train, generator)
         k, v, k_ip, v_ip = (t.to(x.dtype) for t in ctx_kv)
-        fused, v_ip_norm = dual_context_attention(q, k, v, k_ip, v_ip, train=train, fusion_u=fusion_u)
+        if ip_mask is not None:
+            text_out, id_out = sdpa(q, k, v), sdpa(q, k_ip, v_ip)
+            fused = text_out + MASK_FUSION_SCALE * (id_out * ip_mask.to(text_out.dtype)[:, :, None, None])
+            v_ip_norm = v_ip.float().square().sum(dim=-1).sqrt().transpose(1, 2)
+        else:
+            fused, v_ip_norm = dual_context_attention(q, k, v, k_ip, v_ip, train=train, fusion_u=fusion_u)
         return self.to_out[0](fused.reshape(B, S, C)), v_ip_norm
 
 
@@ -177,14 +235,14 @@ class BasicTransformerBlock(nn.Module):
         self.norm3 = LayerNorm(ch, 1e-5, nf)
         self.ff = _FeedForward(ch)
 
-    def forward(self, h, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None, **train_kw):
+    def forward(self, h, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None, ip_mask=None, **train_kw):
         h = h + self.attn1(self.norm1(h))
-        if fused_bundle is not None:
+        if fused_bundle is not None and ip_mask is None:
             # the whole tail (LN2 + dual-cross + LN3 + GEGLU + residuals)
             h = fused_cross_ff(h.contiguous(), fused_bundle, self.heads)
             v_ip = fused_bundle["ctx"][3]  # (B, H, K, d)
             return h, v_ip.float().square().sum(dim=-1).sqrt()
-        a2, v_ip_norm = self.attn2(self.norm2(h), text_ctx, id_ctx, ctx_kv, **train_kw)
+        a2, v_ip_norm = self.attn2(self.norm2(h), text_ctx, id_ctx, ctx_kv, ip_mask=ip_mask, **train_kw)
         h = h + a2
         return h + self.ff(self.norm3(h)), v_ip_norm
 
@@ -199,10 +257,11 @@ class Transformer2D(nn.Module):
         self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, cfg)])
         self.proj_out = nn.Conv2d(ch, ch, 1)
 
-    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None, **train_kw):
+    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None, ip_mask=None, **train_kw):
         B, C, Hh, Ww = x.shape
         h = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(B, Hh * Ww, C)
-        h, vn = self.transformer_blocks[0](h, text_ctx, id_ctx, ctx_kv, fused_bundle, **train_kw)
+        h, vn = self.transformer_blocks[0](h, text_ctx, id_ctx, ctx_kv, fused_bundle,
+                                           _downsample_ip_mask(ip_mask, B, Hh, Ww), **train_kw)
         h = h.reshape(B, Hh, Ww, C).permute(0, 3, 1, 2)
         return self.proj_out(h) + x, vn
 
@@ -214,7 +273,8 @@ class UNet2DCondition(nn.Module):
     train=True takes `fusion_u` (L,), one uniform in [0, 1) per
     cross-attention layer in call order (the JAX package draws them as
     uniform(fold_in(fusion_rng, i))), and, with lora_dropout > 0, the
-    `dropout_generator` the LoRA masks are drawn from."""
+    `dropout_generator` the LoRA masks are drawn from. `ip_mask` (B, Hm, Wm)
+    takes every block down the masked route (no fused tail)."""
 
     def __init__(self, config: UNetConfig = UNetConfig()):
         super().__init__()
@@ -291,6 +351,7 @@ class UNet2DCondition(nn.Module):
         train: bool = False,
         fusion_u: Optional[torch.Tensor] = None,  # (L,) uniforms, train mode
         dropout_generator: Optional[torch.Generator] = None,
+        ip_mask: Optional[torch.Tensor] = None,  # (B, Hm, Wm) identity mask in [0, 1]
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype = self.conv_in.weight.dtype
         B = sample.shape[0]
@@ -299,8 +360,8 @@ class UNet2DCondition(nn.Module):
             timesteps = timesteps.expand(B)
         if train and fusion_u is None:
             raise ValueError("fusion_u is required when train=True")
-        if train or torch.is_grad_enabled():
-            fused_bundles = None  # the fused tail is eval-only (no backward)
+        if train or torch.is_grad_enabled() or ip_mask is not None:
+            fused_bundles = None  # the fused tail is eval-only (no backward) and has no mask
         layer = itertools.count()  # cross-attention layers in call order
 
         def cross(attn, x):
@@ -310,6 +371,7 @@ class UNet2DCondition(nn.Module):
                 x, text_ctx, id_ctx,
                 None if ctx_kv is None else ctx_kv[i],
                 None if fused_bundles is None else fused_bundles[i],
+                ip_mask,
                 **kw,
             )
 

@@ -342,3 +342,161 @@ def test_fused_kernel_refuses_grad(gen):
         fb.fused_cross_ff(h, bundle, H)
     with torch.no_grad():
         assert fb.fused_cross_ff(h, bundle, H).shape == h.shape
+
+
+# ---------------------------------------------------------------------------
+# the serving entry points on the card, at a narrow width: every flash and
+# fused layer of this bundle is routed to its kernel (UNet levels of 320
+# and 640 channels with 8 heads, a 512-channel VAE mid block, 64px images)
+
+import contextlib
+from unittest import mock
+
+import numpy as np
+
+
+def _narrow_bundle():
+    from photoverse_tpu_torch.models.assembly import build_models, init_params
+    from photoverse_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
+    from photoverse_tpu_torch.models.unet import UNetConfig
+    from photoverse_tpu_torch.models.vae import VAEConfig
+
+    return init_params(build_models(
+        dtype=torch.bfloat16,
+        unet_config=UNetConfig(block_out_channels=(320, 640), layers_per_block=1, cross_attention_dim=64,
+                               num_heads=8, use_flash_attention=True, flash_min_seq=256,
+                               fast_attention_scores=True, fast_norms=True, fused_blocks=True),
+        vae_config=VAEConfig(block_out_channels=(32, 512), layers_per_block=1, use_flash_attention=True,
+                             fast_norms=True),
+        text_config=CLIPTextConfig(vocab_size=64, hidden_size=64, num_layers=2, num_heads=2,
+                                   intermediate_size=128, max_position_embeddings=16),
+        vision_config=CLIPVisionConfig(hidden_size=32, num_layers=4, num_heads=2, intermediate_size=64,
+                                       image_size=16, patch_size=8),
+        image_encoder_layers_idx=(1, 2, 3, 4)), seed=0)
+
+
+def _narrow_example(B, seed=0):
+    rng = np.random.RandomState(seed)
+    ids = rng.randint(1, 62, (B, 16))
+    ids[:, 0], ids[:, -1] = 62, 63
+    return {
+        "pixel_values": rng.randn(B, 64, 64, 3).astype(np.float32).clip(-1, 1),
+        "pixel_values_clip": rng.randn(B, 16, 16, 3).astype(np.float32),
+        "text_input_ids": ids.astype(np.int32),
+        "concept_placeholder_idx": np.full((B,), 3, np.int32),
+        "negative_text_input_ids": np.tile(np.array([62] + [63] * 15, np.int32), (B, 1)),
+    }
+
+
+@contextlib.contextmanager
+def _plain_kernels():
+    from photoverse_tpu_torch.models import unet, vae
+
+    with mock.patch.object(unet, "flash_sdpa", fs.flash_sdpa_plain), \
+            mock.patch.object(unet, "fused_cross_ff", fb.reference_cross_ff), \
+            mock.patch.object(vae, "flash_sdpa_stream", fs.flash_sdpa_plain):
+        yield
+
+
+def test_masked_unet_evaluation_kernels_against_plain(gen):
+    # a mask keeps flash self-attention and turns the fused tail off
+    from photoverse_tpu_torch.engine import inference
+
+    models = _narrow_bundle()
+    B = 2
+    lat = torch.randn(B, 32, 32, 4, generator=gen, device="cuda")
+    text, ident = _r(gen, B, 16, 64), _r(gen, B, 1, 64)
+    mask = torch.zeros(B, 64, 64, device="cuda")
+    mask[:, :, 32:] = 1.0
+    t = torch.tensor([500.5, 20.0], device="cuda")
+    kv = inference.precompute_ctx_kv(models, text, ident)
+    bundles = inference.precompute_fused_bundles(models, kv)
+    assert sum(b is not None for b in bundles) == 3  # the C=320 blocks are served, the C=640 mid block not
+    _build.reset_launch_counts()
+    with torch.no_grad():
+        got, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles, ip_mask=mask)
+        counts = dict(_build.launch_counts)
+        free, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles)
+        free_counts = dict(_build.launch_counts)
+        with _plain_kernels():
+            want, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles, ip_mask=mask)
+    assert counts == {"flash_sdpa": 4}  # S=1024 down and twice up, S=256 mid
+    assert free_counts == {"flash_sdpa": 8, "fused_cross_ff": 3}
+    assert torch.isfinite(got).all()
+    scale = want.abs().max().item()
+    print(f"masked eval kernels vs plain {(got - want).abs().max().item():.6g} of {scale:.6g}, "
+          f"mask vs none {(got - free).abs().max().item():.6g}")
+    assert (got - want).abs().max().item() <= 2**-5 * scale  # bf16 activations, one evaluation
+    assert (got - free).abs().max().item() > 2**-3 * scale  # the mask acts
+
+
+def test_euler_a_run_kernels_against_plain(gen):
+    from photoverse_tpu_torch.core.schedulers import make_solver
+    from photoverse_tpu_torch.engine.inference import run_inference
+
+    models = _narrow_bundle()
+    solver = make_solver(models.schedule, "euler_a", 3)
+    example = _narrow_example(2)
+    kw = dict(guidance_scale=2.0, latent_size=32)
+    _build.reset_launch_counts()
+    got = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(4), **kw)
+    counts = dict(_build.launch_counts)
+    with _plain_kernels():
+        want = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(4), **kw)
+    other = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(5), **kw)
+    assert counts == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1}
+    assert got.shape == (2, 64, 64, 3) and torch.isfinite(got).all()
+    diff, seeds = (got - want).abs().max().item(), (got - other).abs().max().item()
+    print(f"euler_a kernels vs plain {diff:.6g}, seed 4 vs seed 5 {seeds:.6g}")
+    assert diff <= 0.1 and seeds > 2 * diff  # the guidance limit of the smoke run's pipeline phase
+
+
+def test_service_worker_thread_launches_kernels_and_reuses_the_build(gen, tmp_path):
+    import json
+    import os
+
+    from photoverse_tpu_torch.cli.serve import PhotoVerseService, build_parser
+    from photoverse_tpu_torch.data.tokenizer import CLIPTokenizer
+
+    vocab = {c + w: i for i, (c, w) in enumerate((c, w) for c in "abcdefghijklmnopqrstuvwxyz*" for w in ("", "</w>"))}
+    vocab["<|startoftext|>"], vocab["<|endoftext|>"] = 62, 63
+    (tmp_path / "tokenizer").mkdir()
+    (tmp_path / "tokenizer" / "vocab.json").write_text(json.dumps(vocab))
+    (tmp_path / "tokenizer" / "merges.txt").write_text("#version: 0.2\n")
+    (tmp_path / "tokenizer" / "tokenizer_config.json").write_text(json.dumps({"model_max_length": 16}))
+    tok = CLIPTokenizer.from_pretrained(str(tmp_path))
+    models = _narrow_bundle()
+    args = build_parser().parse_args(["--model_path", "unused", "--resolution", "64", "--fast",
+                                      "--dynamic_batching", "--max_batch", "2", "--batch_wait_ms", "2000"])
+    so = os.path.join(_build.BUILD_DIR, _build.LIB_NAME)
+    built = os.path.getmtime(so)
+    svc = PhotoVerseService(args, models=(tok, models))
+    key = (3, 2.0, "euler_a")
+    _build.reset_launch_counts()
+    import threading
+
+    out = {}
+
+    def fire(seed):
+        out[seed] = svc.submit(_narrow_example(1, seed), 1, seed, key)
+
+    threads = [threading.Thread(target=fire, args=(s,)) for s in (3, 7)]
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    assert out[3]["batch_rows"] == out[7]["batch_rows"] == 2
+    assert dict(_build.launch_counts) == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1}
+    assert out[3]["images"].shape == (1, 64, 64, 3) and out[3]["images"].dtype == np.uint8
+    assert not svc.thread_errors and svc.drain(30)
+
+    # a second service in the same process: the same library, no rebuild,
+    # and each request equals its coalesced run within uint8 rounding
+    seq = PhotoVerseService(build_parser().parse_args(["--model_path", "unused", "--resolution", "64", "--fast"]),
+                            models=(tok, models))
+    assert os.path.getmtime(so) == built
+    for seed in (3, 7):
+        solo = seq.submit(_narrow_example(1, seed), 1, seed, key)["images"].astype(int)
+        print(f"seed {seed}: coalesced vs solo {np.abs(solo - out[seed]['images'].astype(int)).max()} / 255")
+        assert np.abs(solo - out[seed]["images"].astype(int)).max() <= 8
+    assert np.abs(out[3]["images"].astype(int) - out[7]["images"].astype(int)).max() > 16
