@@ -41,7 +41,21 @@ Phases (each one fails the run on error):
      per micro-step, bit-identical repeat gradients, the same micro-step
      on the plain versions (plain autograd) against limits that planted
      faults exceed, and every training-kernel call of that micro-step
-     against its plain version on the call's own inputs.
+     against its plain version on the call's own inputs; the recipe's face
+     micro-step (batch 8, 4 face rows) without and with remat,
+     bit-identical, and with a planted unrestored dropout generator, which
+     must differ.
+  8. train-cli: cli/train.py, the user's entry point, with --recipe
+     canonical on an SD-1.5-layout directory written from random numpy-seeded
+     weights and 32 identities as 512px JPEGs: batch 16 as micro-batches of
+     8 x 2, remat, the random ArcFace with the fused face window, uint8
+     transfer, async checkpoints in both formats every 2 steps, a sample
+     grid. SIGTERM once the first stepped checkpoint is on disk (a native
+     checkpoint at the next optimizer step, then return), resume from it for
+     three steps (the state load_progress returns equal to the state at
+     SIGTERM bit for bit), exact launches per micro-step under remat; it
+     prints s per optimizer step, peak memory, checkpoint write times, the
+     loader's rate and a profiled step's device-busy share.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON summary (`launches` from the 50-step generation or
 the training micro-steps, `serve_launches` from the serve phase's first
@@ -51,6 +65,7 @@ coalesced batch).
 from __future__ import annotations
 
 import contextlib
+import dataclasses
 import json
 import os
 import subprocess
@@ -342,9 +357,10 @@ def phase_kernels(source_tpu: dict):
               f"(tol {tol:.6g}), repeat bit-identical {same}")
 
     # the VAE's mid-block attention: decode of two requests (the pipeline
-    # phase), of the server's bucket 4, of one request (the samplers phase)
+    # phase), of the server's bucket 4, of one request (the samplers phase),
+    # and the train-CLI phase's encode of its micro-batch of 8
     S, H, d = 4096, 1, 512
-    for B in (2, 4, 1):
+    for B in (2, 4, 1, 8):
         q, k, v = ((0.3 * torch.randn(B, S, H, d, generator=gen, device=dev)).bfloat16() for _ in range(3))
         got = fs.flash_sdpa_stream(q, k, v)
         want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
@@ -418,10 +434,14 @@ def phase_kernels(source_tpu: dict):
         fault(not within, f"{name} {what}: err {err:.6g} (tol {tol:.6g})")
 
     # the train phase's shapes: its UNet grad evals run batch 4 (4 rows, or
-    # the face branch's 2 rows doubled by guidance), its face decode 2 rows
+    # the face branch's 2 rows doubled by guidance), its face decode 2 rows;
+    # then the canonical recipe's (the train-CLI phase): micro-batch 8, and
+    # the face branch's 4 rows doubled by guidance, its decode 4 rows
     lse_cases = [  # (kernel, B, S, H, d): the UNet's two levels, the VAE
         ("flash_sdpa_fwd_lse", 4, 4096, 8, 40), ("flash_sdpa_fwd_lse", 4, 1024, 8, 80),
         ("flash_stream_fwd_lse", 2, 4096, 1, 512),
+        ("flash_sdpa_fwd_lse", 8, 4096, 8, 40), ("flash_sdpa_fwd_lse", 8, 1024, 8, 80),
+        ("flash_stream_fwd_lse", 4, 4096, 1, 512),
     ]
     for name, B, S, H, d in lse_cases:
         q, k, v = (torch.randn(B, S, H, d, generator=gen, device=dev).bfloat16() for _ in range(3))
@@ -432,13 +452,14 @@ def phase_kernels(source_tpu: dict):
         record(name, "cuda", stream_src if d == 512 else wgmma_src, source_tpu[name],
                err, tol, lambda: fs.flash_fwd_lse(q, k, v), 10, plain_ms, [B, S, S, H, d],
                bounds.flash_fwd(B, S, S, H, d, with_lse=True), sdpa(q, k, v), ok=within)
-        if name == "flash_sdpa_fwd_lse" and d == 40:
+        if name == "flash_sdpa_fwd_lse" and d == 40 and B == 4:
             planted(name, "lse off by one row", (got[0], got[1].roll(1, dims=-1)), want)
-        if name == "flash_stream_fwd_lse":
+        if name == "flash_stream_fwd_lse" and B == 2:
             planted(name, "last 64 keys dropped",
                     fs.flash_fwd_lse(q, k[:, :-64], v[:, :-64]), want)
 
-    for B, S, H, d in ((4, 4096, 8, 40), (4, 1024, 8, 80)):
+    # the train phase's batch 4, then the recipe's micro-batch 8
+    for B, S, H, d in ((4, 4096, 8, 40), (4, 1024, 8, 80), (8, 4096, 8, 40), (8, 1024, 8, 80)):
         q, k, v = (torch.randn(B, S, H, d, generator=gen, device=dev).bfloat16() for _ in range(3))
         out, lse = fs.flash_fwd_lse_plain(q, k, v)
         g = torch.randn(B, S, H, d, generator=gen, device=dev).bfloat16()
@@ -455,7 +476,7 @@ def phase_kernels(source_tpu: dict):
                bounds.flash_bwd(B, S, H, d),
                lambda: torch.autograd.grad(lib_out, (qt, kt, vt), gt, retain_graph=True), ok=within)
         del lib_out
-        if d == 40:
+        if d == 40 and B == 4:
             dq, dk, dv = got
             dk, dv = dk.clone(), dv.clone()
             dk[:, -64:] = 0
@@ -993,6 +1014,22 @@ def _flash_layers(cfg, latent: int) -> int:
                if (latent >> i) ** 2 >= cfg.flash_min_seq)
 
 
+def _train_counts(n_flash: int, face_steps: int, face: bool, remat: bool) -> dict:
+    """Launches of one micro-step of the train step at 512px. Under grad each
+    flash layer launches its lse forward (kernel 2) and, but for the first
+    layer, whose inputs depend on no trainable weight, its backward (kernel
+    3); the VAE encodes without grad (kernel 4). The face micro-step adds a
+    second VAE encode, the inner generation's no-grad steps (kernel 1), one
+    more UNet evaluation under grad and the decode under grad (kernel 5).
+    Remat recomputes every block that holds a flash layer in the backward,
+    so each lse forward runs twice; the backward kernels do not."""
+    r = 2 if remat else 1
+    if not face:
+        return {"flash_sdpa_stream": 1, "flash_sdpa_fwd_lse": r * n_flash, "flash_bwd": n_flash - 1}
+    return {"flash_sdpa_stream": 2, "flash_sdpa": n_flash * (face_steps - 1), "flash_sdpa_fwd_lse": 2 * r * n_flash,
+            "flash_bwd": 2 * (n_flash - 1), "flash_stream_fwd_lse": r}
+
+
 def phase_train():
     """The canonical train step at SD-1.5 width, kernels against plain."""
     import torch
@@ -1035,13 +1072,8 @@ def phase_train():
     B, n_face, latent = 4, 2, 64
     L = len(models.unet.cross_attentions())
     n_flash = _flash_layers(models.unet.config, latent)
-    # the first flash layer's inputs depend on no trainable weight, so
-    # autograd runs no backward there
-    main_counts = {"flash_sdpa_stream": 1, "flash_sdpa_fwd_lse": n_flash, "flash_bwd": n_flash - 1}
-    face_counts = {  # + the face encode, the no-grad prefix, the grad step, the decode
-        "flash_sdpa_stream": 2, "flash_sdpa": n_flash * (cfg.face_loss_timesteps - 1),
-        "flash_sdpa_fwd_lse": 2 * n_flash, "flash_bwd": 2 * (n_flash - 1), "flash_stream_fwd_lse": 1,
-    }
+    main_counts = _train_counts(n_flash, cfg.face_loss_timesteps, face=False, remat=False)
+    face_counts = _train_counts(n_flash, cfg.face_loss_timesteps, face=True, remat=False)
 
     def draws(seed, face):
         g = torch.Generator(device="cuda").manual_seed(seed)
@@ -1214,7 +1246,64 @@ def phase_train():
         ok &= caught
         log(f"  {'caught' if caught else 'NOT CAUGHT'}")
         del gf, sf
-    del g1, gp
+    del gp
+
+    del g1
+
+    # remat (the recipe's --remat) at the recipe's micro-step: batch 8 with 4
+    # face rows (inner UNet batch 8), without remat and then with each UNet
+    # resnet / transformer block and the decoder's blocks recomputed in the
+    # backward, on the same draws. The recompute replays the LoRA dropout
+    # masks from the explicit generator, so the gradients are the no-remat
+    # ones bit for bit; with the generator not restored (planted) they are not
+    from photoverse_tpu_torch.models import layers
+
+    B8, n_face8 = 8, 4
+    batch8 = _train_batch(B8, n_face8, seed=23)
+
+    def grads8():
+        g = torch.Generator(device="cuda").manual_seed(103)
+        m, gr = face_step.compute_grads(batch8, tr.make_draws(g, B8, latent, L, face_rows=n_face8))
+        return {k: float(v) for k, v in m.items()}, gr
+
+    def set_remat(on):
+        models.unet.config = dataclasses.replace(models.unet.config, remat=on)
+        models.vae.config = dataclasses.replace(models.vae.config, remat=on)
+
+    phase_peak = torch.cuda.max_memory_allocated() / 2**30
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    m0, g0 = grads8()
+    peak0 = torch.cuda.max_memory_allocated() / 2**30
+    set_remat(True)
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        _build.reset_launch_counts()
+        mr, gr = grads8()
+        remat_counts = dict(_build.launch_counts)
+        remat_peak = torch.cuda.max_memory_allocated() / 2**30
+        phase_peak = max(phase_peak, peak0)
+        want = _train_counts(n_flash, cfg.face_loss_timesteps, face=True, remat=True)
+        differ = [k for k in g0 if not torch.equal(g0[k], gr[k])]
+        good = mr == m0 and not differ and remat_counts == want
+        ok &= good
+        log(f"train: remat vs no remat, the recipe's face micro-step (batch {B8}, {n_face8} face rows): losses "
+            f"equal {mr == m0}, {len(g0) - len(differ)} of {len(g0)} gradients bit-identical"
+            f"{'' if not differ else f' (largest difference {max((g0[k] - gr[k]).abs().max().item() for k in differ):.3g})'}"
+            f"; launches {remat_counts} (want {want}); peak {peak0:.2f} GiB without remat, {remat_peak:.2f} GiB "
+            f"with {'OK' if good else 'FAIL'}")
+        del gr
+        with mock.patch.object(layers, "replaying", lambda fn, gen: fn):
+            mf, gf = grads8()
+        differ = [k for k in g0 if not torch.equal(g0[k], gf[k])]
+        caught = bool(differ)
+        ok &= caught
+        log(f"  planted fault, the dropout generator not restored for the recompute: {len(differ)} of {len(g0)} "
+            f"gradients differ {'caught' if caught else 'NOT CAUGHT'}")
+        del gf
+    finally:
+        set_remat(False)
+    del g0, batch8
 
     # s per optimizer step: a window (diffusion + face micro-step) of
     # compute_grads, kernels and plain versions in turns
@@ -1233,8 +1322,301 @@ def phase_train():
     plain = [t for t, c in zip(secs, order) if c is plain_kernels]
     log(f"train: s per optimizer step, gradients only (plain, kernels, kernels, plain) x 2: "
         f"{' '.join(f'{t:.4f}' for t in secs)}; kernels {np.mean(kern):.4f} plain {np.mean(plain):.4f}")
-    log(f"train: peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    log(f"train: peak device memory {max(phase_peak, torch.cuda.max_memory_allocated() / 2**30):.2f} GiB")
     return totals, ok
+
+
+def _write_model_dir(root: str, models) -> float:
+    """A diffusers-layout model directory as `load_models` reads one, from
+    `models`: each model's state dict (the port's names are the diffusers /
+    transformers names) as a `.bin` in its own dtype with its config file,
+    and the DDPM scheduler's config; the caller adds the tokenizer. Returns
+    the weights' size in GiB."""
+    import torch
+
+    t, c, u, v = (models.text_encoder.config, models.vision_encoder.config, models.unet.config,
+                  models.vae.config)
+    parts = {
+        "text_encoder": (models.text_encoder, "pytorch_model.bin", dict(
+            vocab_size=t.vocab_size, hidden_size=t.hidden_size, num_hidden_layers=t.num_layers,
+            num_attention_heads=t.num_heads, intermediate_size=t.intermediate_size,
+            max_position_embeddings=t.max_position_embeddings)),
+        "image_encoder": (models.vision_encoder, "pytorch_model.bin", dict(
+            hidden_size=c.hidden_size, num_hidden_layers=c.num_layers, num_attention_heads=c.num_heads,
+            intermediate_size=c.intermediate_size, image_size=c.image_size, patch_size=c.patch_size)),
+        "vae": (models.vae, "diffusion_pytorch_model.bin", dict(
+            in_channels=v.in_channels, out_channels=v.out_channels, latent_channels=v.latent_channels,
+            block_out_channels=list(v.block_out_channels), layers_per_block=v.layers_per_block,
+            norm_num_groups=v.norm_num_groups, scaling_factor=v.scaling_factor)),
+        # attention_head_dim of an SD-1.5 UNet config is its head count
+        "unet": (models.unet, "diffusion_pytorch_model.bin", dict(
+            in_channels=u.in_channels, out_channels=u.out_channels, block_out_channels=list(u.block_out_channels),
+            layers_per_block=u.layers_per_block, cross_attention_dim=u.cross_attention_dim,
+            attention_head_dim=u.num_heads, norm_num_groups=u.norm_num_groups)),
+    }
+    size = 0
+    for sub, (module, fname, cfg) in parts.items():
+        d = os.path.join(root, sub)
+        os.makedirs(d)
+        torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, os.path.join(d, fname))
+        with open(os.path.join(d, "config.json"), "w") as f:
+            json.dump(cfg, f)
+        size += os.path.getsize(os.path.join(d, fname))
+    os.makedirs(os.path.join(root, "scheduler"))
+    with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
+        json.dump({"num_train_timesteps": 1000, "beta_start": 0.00085, "beta_end": 0.012,
+                   "beta_schedule": "scaled_linear", "prediction_type": "epsilon", "steps_offset": 1}, f)
+    return size / 2**30
+
+
+def _face_photo(rng, size: int) -> np.ndarray:
+    """A smooth random RGB image: 16x16 noise brought up to `size` by
+    repeating pixels and averaging neighbours."""
+    small = rng.randint(0, 256, (16, 16, 3)).astype(np.float32)
+    big = np.repeat(np.repeat(small, size // 16, axis=0), size // 16, axis=1)
+    for axis in (0, 1):
+        big = (big + np.roll(big, 8, axis=axis)) / 2
+    return big.round().clip(0, 255).astype(np.uint8)
+
+
+def phase_train_cli(smi: str):
+    """cli/train.py, the user's entry point, at SD-1.5 width with the
+    canonical recipe; SIGTERM at the first stepped checkpoint, then resume."""
+    import signal
+
+    import torch
+    from PIL import Image
+
+    from photoverse_tpu_torch.ckpt import checkpoint as ck
+    from photoverse_tpu_torch.cli import train as cli
+    from photoverse_tpu_torch.data.dataset import BatchLoader, CustomDataset
+    from photoverse_tpu_torch.engine import training as tr
+    from photoverse_tpu_torch.models import assembly
+    from photoverse_tpu_torch.models.assembly import build_models, init_params
+    from photoverse_tpu_torch.models.unet import UNetConfig
+    from photoverse_tpu_torch.ops import _build
+
+    ok = True
+
+    def check(good, what):
+        nonlocal ok
+        ok &= bool(good)
+        log(f"train-cli: {what} {'OK' if good else 'FAIL'}")
+
+    torch.cuda.empty_cache()
+    # the canonical recipe's flash layers and inner steps at 512px
+    n_flash = _flash_layers(UNetConfig(), 64)
+    face_steps = tr.TrainConfig.face_loss_timesteps
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        root = os.path.join(tmp, "sd15")
+        base_models = init_params(build_models(dtype=torch.bfloat16), seed=0)
+        gib = _write_model_dir(root, base_models)
+        del base_models
+        torch.cuda.empty_cache()
+        tokenizer = _synthetic_tokenizer(root)
+        log(f"train-cli: SD-1.5-layout model directory ({gib:.2f} GiB of bf16 .bin, random weights from a numpy "
+            f"seed, the synthetic tokenizer) written in {time.perf_counter() - t0:.1f}s")
+        # the identities as JPEGs on disk, decoded and resized by the loader
+        data = os.path.join(tmp, "data")
+        n_ids = 32
+        os.makedirs(os.path.join(data, "images"))
+        rng = np.random.RandomState(60)
+        for i in range(n_ids):
+            Image.fromarray(_face_photo(rng, 512)).save(os.path.join(data, "images", f"{i}.jpg"), quality=95)
+        log(f"train-cli: {n_ids} identities written as 512px JPEGs")
+        out1, out2 = os.path.join(tmp, "run1"), os.path.join(tmp, "run2")
+        base = ["--recipe", "canonical", "--pretrained_model_name_or_path", root, "--data_root_path", data,
+                "--allow_random_face_model", "--checkpoint_save_steps", "2", "--checkpoint_format", "both",
+                "--seed", "0", "--report_to", "none", "--samples_save_steps", "2"]
+
+        # every TrainStep call (a micro-step) with its launches
+        per_step = []
+        real_call = tr.TrainStep.__call__
+
+        def counted(self, batch, draws):
+            _build.reset_launch_counts()
+            out = real_call(self, batch, draws)
+            per_step.append(("face" if "face_pixel_values" in batch else "diffusion", dict(_build.launch_counts)))
+            return out
+
+        # each checkpoint write's time, in the writer's thread
+        writes = []
+
+        def timed(fn):
+            def run(*a, **kw):
+                t = time.perf_counter()
+                path = fn(*a, **kw)
+                writes.append((os.path.basename(path), time.perf_counter() - t, os.path.getsize(path)))
+                return path
+            return run
+
+        stepped = os.path.join(out1, "photoverse_000002.msgpack")
+        watching = threading.Event()
+        sent = []
+
+        def watch():  # SIGTERM once the first stepped checkpoint is on disk
+            while watching.is_set():
+                if os.path.exists(stepped):
+                    sent.append(time.perf_counter())
+                    os.kill(os.getpid(), signal.SIGTERM)
+                    return
+                time.sleep(0.02)
+
+        torch.cuda.reset_peak_memory_stats()
+        watching.set()
+        watcher = threading.Thread(target=watch, daemon=True)
+        t0 = time.perf_counter()
+        with mock.patch.object(tr.TrainStep, "__call__", counted), \
+                mock.patch.object(ck, "save_progress", timed(ck.save_progress)), \
+                mock.patch.object(ck, "save_progress_pt", timed(ck.save_progress_pt)):
+            watcher.start()
+            try:
+                models, opt, s1 = cli.main(base + ["--output_dir", out1, "--max_train_steps", "8",
+                                                   "--profile_steps", "1,2"])
+            finally:
+                watching.clear()
+        run1_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        saved = {k: v for k, v in ck.host_save_snapshot(models).items() if k in ck.partition_params(models)[0]}
+        saved_opt = ck.optax_state(opt)
+        accum, updates = opt.accum, opt.updates
+        del models, opt
+        torch.cuda.empty_cache()
+        ckpt1 = os.path.join(out1, f"photoverse_{s1:06d}.msgpack")
+        with open(os.path.join(out1, "metrics.jsonl")) as f:
+            rows1 = [json.loads(line) for line in f]
+        steps1 = [r for r in rows1 if "loss_mle" in r]
+        check(bool(sent) and 2 < s1 < 8 and updates == s1 and accum == 2 and os.path.exists(ckpt1)
+              and os.path.exists(ckpt1.replace(".msgpack", ".pt"))
+              and [r["step"] for r in steps1] == list(range(1, s1 + 1)),
+              f"run 1 ({run1_s:.1f}s with the load): micro-batch 8 x {accum} accumulation steps; SIGTERM sent when "
+              f"photoverse_000002.msgpack appeared, checkpoint at the next boundary {os.path.basename(ckpt1)} "
+              f"(+ .pt), returned at step {s1} of 8")
+        sim = [r for r in rows1 if "face_similarity" in r]
+        check(len(sim) == 1 and os.path.exists(os.path.join(out1, "00002.jpg")),
+              f"sample grid at step 2 with face_similarity {sim[0]['face_similarity'] if sim else None}")
+
+        # resume from the SIGTERM checkpoint, on top of the step-2 .pt loaded
+        # through load_models(photoverse_path=...)
+        pt2 = os.path.join(out1, "photoverse_000002.pt")
+        loaded = {}
+        real_load = ck.load_progress
+
+        real_load_models = assembly.load_models
+
+        def load_models(*a, **kw):
+            tok, m, lora = real_load_models(*a, **kw)
+            loaded["from_pt"] = {f"{name}.{k}": (v.dtype, v.detach().float().cpu().numpy())
+                                 for name in ("image_adapter", "text_adapter")
+                                 for k, v in getattr(m, name).state_dict().items()}
+            return tok, m, lora
+
+        def load(path, m, o):
+            trainable = ck.partition_params(m)[0]
+            step = real_load(path, m, o)
+            loaded.update(step=step, opt=ck.optax_state(o),
+                          snap={k: v for k, v in ck.host_save_snapshot(m).items() if k in trainable})
+            return step
+
+        # three steps: the first after a load warms cuDNN and the allocator up
+        n_run1, last = len(per_step), s1 + 3
+        with mock.patch.object(tr.TrainStep, "__call__", counted), mock.patch.object(ck, "load_progress", load), \
+                mock.patch.object(assembly, "load_models", load_models):
+            models, opt, s2 = cli.main(base + ["--output_dir", out2, "--max_train_steps", str(last), "--resume_from",
+                                               ckpt1, "--pretrained_photoverse_path", pt2])
+        pt = torch.load(pt2, map_location="cpu", weights_only=True)
+        # load_models stores each weight in its parameter's dtype
+        pt_diff = [(float(np.abs(loaded["from_pt"][f"{m}.{k}"][1]
+                                 - v.to(loaded["from_pt"][f"{m}.{k}"][0]).float().numpy()).max()), m, k)
+                   for m in ("image_adapter", "text_adapter") for k, v in pt[m].items()]
+        check(max(pt_diff)[0] == 0 and len(loaded["from_pt"]) == len(pt_diff),
+              f"photoverse_000002.pt through load_models(photoverse_path=...): {len(pt_diff)} adapter tensors "
+              f"equal the file's in their parameters' dtypes (largest difference {max(pt_diff)}), lora r "
+              f"{pt.get('lora_config', {}).get('r')}")
+        same_t = set(loaded["snap"]) == set(saved) and all(np.array_equal(loaded["snap"][k], v)
+                                                           for k, v in saved.items())
+        flat_a, flat_b = [], []
+
+        def flatten(t, out, where=""):
+            if isinstance(t, dict):
+                for k in sorted(t):
+                    flatten(t[k], out, f"{where}/{k}")
+            else:
+                out.append((where, t))
+
+        flatten(saved_opt, flat_a)
+        flatten(loaded["opt"], flat_b)
+        same_o = ([w for w, _ in flat_a] == [w for w, _ in flat_b]
+                  and all(a.dtype == b.dtype and np.array_equal(a, b) for (_, a), (_, b) in zip(flat_a, flat_b)))
+        with open(os.path.join(out2, "metrics.jsonl")) as f:
+            steps2 = [r for r in map(json.loads, f) if "loss_mle" in r]
+        check(loaded["step"] == s1 and same_t and same_o and s2 == last
+              and [r["step"] for r in steps2] == list(range(s1 + 1, last + 1)),
+              f"resume: load_progress gave step {loaded['step']}; {len(saved)} trainables bit-identical {same_t}; "
+              f"optimizer state ({len(flat_a)} arrays: AdamW moments and counts, accumulation) bit-identical "
+              f"{same_o}; steps {[r['step'] for r in steps2]} (want {list(range(s1 + 1, last + 1))})")
+        finite = all(np.isfinite(r[k]) for r in steps1 + steps2 for k in r)
+        check(finite, "every logged loss and time is finite")
+        for r in steps1 + steps2:
+            log(f"  step {r['step']}: {r['step_time_s']:.4f} s per optimizer step, {r['imgs_per_sec']:.4f} images/s, "
+                f"loss_mle {r['loss_mle']:.6g} loss_face {r['loss_face']:.6g}")
+        # not the first step of a run (warm-up) nor the profiled step 2
+        steady = [r["step_time_s"] for r in steps1[2:] + steps2[1:]]
+        log(f"train-cli: s per optimizer step (batch 16 = 8 x 2; steps {[r['step'] for r in steps1[2:] + steps2[1:]]}: "
+            f"not a run's first, not the profiled one) {' '.join(f'{t:.4f}' for t in steady)}; median "
+            f"{float(np.median(steady)):.4f} s, {16 / float(np.median(steady)):.4f} images/s ({smi})")
+        log(f"train-cli: peak device memory over run 1 (load, remat, micro-batch 8, face rows "
+            f"{cli.face_rows(0.25, 8, 2, True)}) {peak:.2f} GiB, against 39.65-42.61 GiB at batch 4 without remat "
+            f"(PERF.md)")
+
+        want_counts = {kind: _train_counts(n_flash, face_steps, kind == "face", remat=True)
+                       for kind in ("face", "diffusion")}
+        wrong = [(i, kind, c) for i, (kind, c) in enumerate(per_step) if c != want_counts[kind]]
+        kinds = [k for k, _ in per_step]
+        check(not wrong and kinds == ["diffusion", "face"] * (len(kinds) // 2) and len(kinds) == 2 * last,
+              f"{len(per_step)} micro-steps ({n_run1} in run 1), launches per micro-step with remat: diffusion "
+              f"{want_counts['diffusion']}, face {want_counts['face']}"
+              + (f"; first wrong: {wrong[0]}" if wrong else ""))
+
+        for name, secs, size in writes:
+            log(f"train-cli: async write of {name} ({size / 2**20:.1f} MiB) took {secs:.4f}s in the writer thread")
+        t = time.perf_counter()
+        snap = ck.host_save_snapshot(models)
+        state = ck.optax_state(opt)
+        snap_s = time.perf_counter() - t
+        lora = {"r": 128, "lora_alpha": 1.0, "lora_dropout": 0.1, "bias": "none",
+                "target_modules": ["attn2.to_k", "attn2.to_v", "attn2.to_q"]}
+        sync_dir = os.path.join(tmp, "sync")
+        t = time.perf_counter()
+        p1 = ck.save_progress(sync_dir, snap, step=s2, lora_config=lora, opt_state=state)
+        native_s = time.perf_counter() - t
+        t = time.perf_counter()
+        p2 = ck.save_progress_pt(sync_dir, snap, step=s2, lora_config=lora)
+        pt_s = time.perf_counter() - t
+        log(f"train-cli: sync checkpoint: host snapshot {snap_s:.4f}s, native {native_s:.4f}s "
+            f"({os.path.getsize(p1) / 2**20:.1f} MiB), .pt {pt_s:.4f}s ({os.path.getsize(p2) / 2**20:.1f} MiB)")
+        del models, opt, snap, state
+        torch.cuda.empty_cache()
+
+        # the loader alone, as the CLI builds it (micro-batch 8, 4 workers)
+        ds = CustomDataset(data, tokenizer, size=512, use_random_templates=True, seed=0, uint8_pixels=True)
+        loader = BatchLoader(ds, 8, shuffle=True, seed=0, num_workers=4)
+        t = time.perf_counter()
+        n = sum(1 for _ in range(2) for _ in loader)
+        rate = n / (time.perf_counter() - t)
+        log(f"train-cli: loader {rate:.3f} batches of 8 a second (Pillow decode and resize, 4 worker threads); "
+            f"the train step consumes {2 / float(np.median(steady)):.3f} a second")
+
+        with open(os.path.join(out1, "profile", "summary.json")) as f:
+            prof = json.load(f)
+        busy = prof["device_busy_s"]
+        check(bool(busy) and 0 < busy <= prof["wall_s"] and prof["top_device_ops"],
+              f"--profile_steps 1,2 (optimizer step 2): {prof['wall_s']:.4f}s wall, device busy "
+              + (f"{busy:.4f}s ({busy / prof['wall_s']:.1%})" if busy else "not measured (no device events)"))
+        for name, ms, count in prof["top_device_ops"]:
+            log(f"  {ms:10.3f} ms  {count:6d}x  {name[:110]}")
+    return ok
 
 
 # file:line of each TPU kernel's pallas_call in the JAX package
@@ -1250,7 +1632,7 @@ SERVING_KERNELS = ("flash_sdpa", "flash_sdpa_stream", "fused_cross_ff")
 
 
 def main() -> int:
-    phase_device()
+    smi = phase_device()
     import torch
 
     phase_build()
@@ -1261,12 +1643,13 @@ def main() -> int:
     serve_launches, serve_ok = phase_serve(models)
     del models
     train_launches, train_ok = phase_train()
+    cli_ok = phase_train_cli(smi)
     # each kernel's launches from the run of the path it lies on: the
     # 50-step generation, or the four training micro-steps; the serving
     # kernels also from the server's first coalesced batch
     launches = {n: results["g1"]["counts"].get(n, 0) if n in SERVING_KERNELS else train_launches.get(n, 0)
                 for n in TPU_KERNELS}
-    ok = (all(r["ok"] for r in rows) and pipe_ok and samplers_ok and serve_ok and train_ok
+    ok = (all(r["ok"] for r in rows) and pipe_ok and samplers_ok and serve_ok and train_ok and cli_ok
           and all(v > 0 for v in launches.values())
           and all(serve_launches.get(n, 0) > 0 for n in SERVING_KERNELS))
     summary = {"kernels": []}

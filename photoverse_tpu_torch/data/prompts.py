@@ -1,6 +1,6 @@
-"""Prompt preparation: template formatting, tokenization, placeholder index
-(the port's own copy of the host code in photoverse_tpu/data/prompts.py that
-the generate and serve CLIs call). Pure numpy.
+"""Prompt preparation: the training templates, template formatting,
+tokenization, placeholder index and the face-loss sub-batch pick (the
+port's own copy of photoverse_tpu/data/prompts.py). Pure numpy.
 """
 
 from __future__ import annotations
@@ -9,7 +9,56 @@ from typing import Dict, Optional
 
 import numpy as np
 
-__all__ = ["prepare_prompt", "find_placeholder_index"]
+__all__ = [
+    "IMAGENET_TEMPLATES_SMALL",
+    "EVAL_PROMPTS",
+    "prepare_prompt",
+    "find_placeholder_index",
+    "random_batch_slicing",
+]
+
+# the 27 training templates (--use_random_prompts)
+IMAGENET_TEMPLATES_SMALL = [
+    "a photo of a {}",
+    "a rendering of a {}",
+    "a cropped photo of the {}",
+    "the photo of a {}",
+    "a photo of a clean {}",
+    "a photo of a dirty {}",
+    "a dark photo of the {}",
+    "a photo of my {}",
+    "a photo of the cool {}",
+    "a close-up photo of a {}",
+    "a bright photo of the {}",
+    "a cropped photo of a {}",
+    "a photo of the {}",
+    "a good photo of the {}",
+    "a photo of one {}",
+    "a close-up photo of the {}",
+    "a rendition of the {}",
+    "a photo of the clean {}",
+    "a rendition of a {}",
+    "a photo of a nice {}",
+    "a good photo of a {}",
+    "a photo of the nice {}",
+    "a photo of the small {}",
+    "a photo of the weird {}",
+    "a photo of the large {}",
+    "a photo of a cool {}",
+    "a photo of a small {}",
+]
+
+# the 7 fixed prompts of the in-training sample grids
+# (--save_samples_with_various_prompts)
+EVAL_PROMPTS = [
+    "{} in Ghibli anime style",
+    "{} in Disney & Pixar style",
+    "{} wears a red hat",
+    "{} on the beach",
+    "Manga drawing of {}",
+    "{} Funko Pop",
+    "{} latte art",
+]
 
 
 def find_placeholder_index(text: str, placeholder_token: str = "*") -> int:
@@ -50,3 +99,22 @@ def prepare_prompt(
         "concept_placeholder_idx": idx,
         "negative_text_input_ids": negative_input_ids,
     }
+
+
+def random_batch_slicing(example: Dict, batch_size: int, num_of_samples: int,
+                         rng: np.random.RandomState) -> Dict:
+    """The face-loss sub-batch: `num_of_samples` rows picked by
+    rng.permutation(batch_size); arrays and lists are sliced, other values
+    kept."""
+    if batch_size < num_of_samples:
+        raise ValueError(f"a batch of {batch_size} has no {num_of_samples} rows to pick")
+    indices = rng.permutation(batch_size)[:num_of_samples]
+    out = {}
+    for key, value in example.items():
+        if isinstance(value, np.ndarray) or hasattr(value, "shape"):
+            out[key] = value[indices]
+        elif isinstance(value, list):
+            out[key] = [value[i] for i in indices]
+        else:
+            out[key] = value
+    return out

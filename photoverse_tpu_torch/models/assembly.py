@@ -6,7 +6,7 @@ CLIP vision encoder, the UNet, the VAE, and the text and image adapters,
 plus the DDPM schedule; its state dict is the counterpart of the JAX
 package's PhotoVerseParams. `load_models` builds it from a local
 diffusers-layout SD-1.5 directory (tokenizer/ text_encoder/ vae/ unet/
-scheduler/ image_encoder/) and, optionally, a PhotoVerse `.pt` checkpoint.
+scheduler/ image_encoder/) and, optionally, a PhotoVerse checkpoint.
 """
 
 from __future__ import annotations
@@ -245,6 +245,7 @@ def load_models(
     fast_attention_scores: bool = False,
     fast_norms: bool = False,
     fused_blocks: bool = False,
+    remat: bool = False,
     seed: int = 0,
     device="cuda",
 ):
@@ -256,9 +257,11 @@ def load_models(
     subfolder when absent). Every checkpoint is converted strictly
     (convert/from_diffusers.py); the identity projections a plain SD
     checkpoint lacks, the adapters and the LoRA factors come from
-    `init_params(seed)` until `photoverse_path` (a `.pt` PhotoVerse
-    checkpoint) overlays them. A checkpoint trained with LoRA re-injects
-    LoRA from its saved config even when the caller passed no LoRA flags.
+    `init_params(seed)` until `photoverse_path` (a PhotoVerse
+    checkpoint, `.pt` or native `.msgpack`) overlays them. A checkpoint
+    trained with LoRA re-injects LoRA from its saved config even when the
+    caller passed no LoRA flags. `remat` recomputes the UNet's and the VAE
+    decoder's block activations in the backward (training).
     The weights are stored in `dtype`, on `device` (the card unless the
     caller asks for the CPU). Returns (tokenizer, models, lora_config)."""
     from photoverse_tpu_torch.ckpt.checkpoint import load_photoverse_checkpoint, peek_lora_config
@@ -281,10 +284,12 @@ def load_models(
         root, lora_rank if use_lora else 0, lora_alpha, lora_dropout)
     unet_cfg = dataclasses.replace(
         unet_cfg, use_flash_attention=use_flash_attention,
-        fast_attention_scores=fast_attention_scores, fast_norms=fast_norms, fused_blocks=fused_blocks)
+        fast_attention_scores=fast_attention_scores, fast_norms=fast_norms, fused_blocks=fused_blocks,
+        remat=remat)
     # the VAE's 4096-token attention takes the streaming flash kernel under
     # the same flag; its GroupNorms follow fast_norms
-    vae_cfg = dataclasses.replace(vae_cfg, use_flash_attention=use_flash_attention, fast_norms=fast_norms)
+    vae_cfg = dataclasses.replace(vae_cfg, use_flash_attention=use_flash_attention, fast_norms=fast_norms,
+                                  remat=remat)
     models = build_models(
         extra_num_tokens=extra_num_tokens, image_encoder_layers_idx=image_encoder_layers_idx,
         dtype=dtype, unet_config=unet_cfg, vae_config=vae_cfg, text_config=text_cfg,

@@ -1,5 +1,6 @@
 """Facial identity loss with the ArcFace embedder. Port of
-photoverse_tpu/models/face_loss.py (the FaceNet branch is not ported).
+photoverse_tpu/models/face_loss.py (the FaceNet branch is not ported;
+`load_face_loss` refuses it).
 
   - grayscale (Rec.601 weights), bilinear resize to the embedder's input
     (F.interpolate, align_corners=False, no antialias: the JAX package's
@@ -12,15 +13,15 @@ photoverse_tpu/models/face_loss.py (the FaceNet branch is not ported).
 
 from __future__ import annotations
 
-from typing import Callable
+from typing import Callable, Optional
 
 import torch
 from torch import nn
 import torch.nn.functional as F
 
-from photoverse_tpu_torch.models.arcface import ArcFaceResNet18
+from photoverse_tpu_torch.models.arcface import ArcFaceResNet18, init_arcface
 
-__all__ = ["rgb_to_grayscale", "face_preprocess", "FaceLoss", "make_face_loss_fn"]
+__all__ = ["rgb_to_grayscale", "face_preprocess", "FaceLoss", "make_face_loss_fn", "load_face_loss"]
 
 REC601 = (0.2989, 0.5870, 0.1140)
 
@@ -76,3 +77,22 @@ def make_face_loss_fn(loss: FaceLoss) -> Callable[[torch.Tensor, torch.Tensor], 
         return loss(x, x_gen, maximize=True, normalize=False)
 
     return fn
+
+
+def load_face_loss(model_name: str, weights_path: Optional[str] = None, device="cuda") -> FaceLoss:
+    """The frozen FaceLoss for `model_name`: ArcFace from a reference
+    ResNetFace `.pt` state dict (a DataParallel "module." prefix and
+    BatchNorm's num_batches_tracked are dropped; every other key must
+    match), or with random weights (init_arcface, seed 0) when no path is
+    given. FaceNet is not ported and is refused."""
+    if model_name != "arcface":
+        raise ValueError(f"--face_loss {model_name} is not ported to photoverse_tpu_torch yet; use arcface")
+    model = ArcFaceResNet18(device=device)
+    if weights_path is None:
+        init_arcface(model, seed=0)
+    else:
+        sd = torch.load(weights_path, map_location="cpu", weights_only=True)
+        sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()
+              if not k.endswith("num_batches_tracked")}
+        model.load_state_dict(sd, strict=True)
+    return FaceLoss(model.eval().requires_grad_(False))

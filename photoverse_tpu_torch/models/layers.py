@@ -17,7 +17,7 @@ import torch.nn.functional as F
 
 __all__ = [
     "GroupNorm", "LayerNorm", "Linear", "LoraLinear", "ResnetBlock", "Group", "Sampler",
-    "proj", "dropout",
+    "proj", "dropout", "remat", "replaying",
 ]
 
 
@@ -71,6 +71,43 @@ def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> 
         raise ValueError("dropout in train mode needs an explicit torch.Generator")
     keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
+
+
+def replaying(fn, generator: Optional[torch.Generator]):
+    """`fn` made to draw the same random numbers from `generator` each time
+    it runs: its first call draws as usual; a later call (the recompute in
+    the backward) starts from the state the first one started from and
+    leaves the generator as it found it. torch.utils.checkpoint restores
+    only the default CPU and CUDA generators, not an explicit one."""
+    if generator is None:
+        return fn
+    start = generator.get_state()
+    calls = [0]
+
+    def run(*args):
+        calls[0] += 1
+        if calls[0] == 1:
+            return fn(*args)
+        now = generator.get_state()
+        generator.set_state(start)
+        try:
+            return fn(*args)
+        finally:
+            generator.set_state(now)
+
+    return run
+
+
+def remat(fn, *args, generator: Optional[torch.Generator] = None):
+    """fn(*args) with its activations recomputed in the backward instead of
+    kept (torch.utils.checkpoint, non-reentrant); the recompute draws the
+    dropout masks of the first run from `generator`. Without grad it is a
+    plain call."""
+    if not torch.is_grad_enabled():
+        return fn(*args)
+    from torch.utils.checkpoint import checkpoint
+
+    return checkpoint(replaying(fn, generator), *args, use_reentrant=False)
 
 
 class LoraLinear(nn.Module):

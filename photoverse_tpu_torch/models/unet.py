@@ -20,6 +20,12 @@ stochastic fusion per cross-attention layer from the caller's uniforms
 (`fusion_u`, one per layer in call order) and LoRA dropout drawn from the
 caller's generator.
 
+`remat`: when grad is enabled, each resnet block and each transformer
+block (Transformer2D) keeps only its inputs, and its activations are
+recomputed in the backward (the JAX package's nn.remat at the same
+boundaries; layers.remat replays the dropout generator for the recompute,
+so a recomputed flash layer launches its lse forward a second time).
+
 `ip_mask` (B, Hm, Wm) in [0, 1] restricts where the identity tokens act:
 each block resizes it to its own latent resolution and computes text
 attention + 2 x identity attention x mask, with no stochastic fusion and
@@ -39,6 +45,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from photoverse_tpu_torch.models import layers
 from photoverse_tpu_torch.models.layers import GroupNorm, Group, LayerNorm, Linear, ResnetBlock, Sampler, proj
 from photoverse_tpu_torch.ops.attention import dual_context_attention, sdpa
 from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa, flash_sdpa_diff
@@ -69,6 +76,7 @@ class UNetConfig:
     fast_norms: bool = False
     fused_blocks: bool = False
     fused_block_max_channels: int = 320
+    remat: bool = False
 
     @property
     def time_embed_dim(self) -> int:
@@ -363,17 +371,20 @@ class UNet2DCondition(nn.Module):
         if train or torch.is_grad_enabled() or ip_mask is not None:
             fused_bundles = None  # the fused tail is eval-only (no backward) and has no mask
         layer = itertools.count()  # cross-attention layers in call order
+        remat = self.config.remat and torch.is_grad_enabled()
 
         def cross(attn, x):
             i = next(layer)
             kw = dict(train=True, fusion_u=fusion_u[i], generator=dropout_generator) if train else {}
-            return attn(
-                x, text_ctx, id_ctx,
-                None if ctx_kv is None else ctx_kv[i],
-                None if fused_bundles is None else fused_bundles[i],
-                ip_mask,
-                **kw,
-            )
+            kv = None if ctx_kv is None else ctx_kv[i]
+            fb = None if fused_bundles is None else fused_bundles[i]
+            if not remat:
+                return attn(x, text_ctx, id_ctx, kv, fb, ip_mask, **kw)
+            return layers.remat(lambda x_, t_, d_: attn(x_, t_, d_, kv, fb, ip_mask, **kw),
+                                x, text_ctx, id_ctx, generator=dropout_generator if train else None)
+
+        def res(block, x):
+            return layers.remat(block, x, temb) if remat else block(x, temb)
 
         temb = timestep_embedding(timesteps, self.config.block_out_channels[0]).to(dtype)
         temb = self.time_embedding.linear_2(F.silu(self.time_embedding.linear_1(temb)))
@@ -385,7 +396,7 @@ class UNet2DCondition(nn.Module):
         skips = [x]
         for blk in self.down_blocks:
             for j, r in enumerate(blk.resnets):
-                x = r(x, temb)
+                x = res(r, x)
                 if blk.attentions is not None:
                     x, vn = cross(blk.attentions[j], x)
                     norms.append(vn)
@@ -394,14 +405,14 @@ class UNet2DCondition(nn.Module):
                 x = blk.downsamplers[0].conv(x)
                 skips.append(x)
 
-        x = self.mid_block.resnets[0](x, temb)
+        x = res(self.mid_block.resnets[0], x)
         x, vn = cross(self.mid_block.attentions[0], x)
         norms.append(vn)
-        x = self.mid_block.resnets[1](x, temb)
+        x = res(self.mid_block.resnets[1], x)
 
         for blk in self.up_blocks:
             for j, r in enumerate(blk.resnets):
-                x = r(torch.cat([x, skips.pop()], dim=1), temb)
+                x = res(r, torch.cat([x, skips.pop()], dim=1))
                 if blk.attentions is not None:
                     x, vn = cross(blk.attentions[j], x)
                     norms.append(vn)

@@ -10,6 +10,11 @@ use_flash_attention the mid blocks' single-head attention at S >= 1024
 forward under torch.no_grad(), the differentiable one (lse forward,
 chunked backward) when grad is enabled (the face loss backpropagates
 through the decoder).
+
+`remat` (the decoder only, as in the JAX package): when grad is enabled the
+mid block, each resnet block and each upsampler keep only their inputs and
+recompute their activations in the backward, so the mid block's stream
+flash launches its lse forward a second time.
 """
 
 from __future__ import annotations
@@ -21,7 +26,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from photoverse_tpu_torch.models.layers import Group, GroupNorm, ResnetBlock, Sampler
+from photoverse_tpu_torch.models.layers import Group, GroupNorm, ResnetBlock, Sampler, remat
 from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa_stream, flash_sdpa_stream_diff
 
 __all__ = ["VAEConfig", "Encoder", "Decoder", "AutoencoderKL"]
@@ -40,6 +45,7 @@ class VAEConfig:
     scaling_factor: float = 0.18215
     use_flash_attention: bool = False
     fast_norms: bool = False
+    remat: bool = False
 
 
 class AttnBlock(nn.Module):
@@ -152,15 +158,18 @@ class Decoder(nn.Module):
         self.conv_norm_out = GroupNorm(G, ch[-1], GN_EPS, nf)
         self.conv_out = nn.Conv2d(ch[-1], cfg.out_channels, 3, padding=1)
 
-    def forward(self, z: torch.Tensor) -> torch.Tensor:
-        """z (B, h, w, latent) NHWC -> pixels (B, H, W, 3) f32."""
+    def forward(self, z: torch.Tensor, remat_blocks: bool = False) -> torch.Tensor:
+        """z (B, h, w, latent) NHWC -> pixels (B, H, W, 3) f32; remat_blocks
+        is the owning AutoencoderKL's config.remat."""
+        run = remat if remat_blocks and torch.is_grad_enabled() else (lambda fn, *a: fn(*a))
         x = self.conv_in(z.permute(0, 3, 1, 2).to(self.conv_in.weight.dtype))
-        x = _run_mid(self.mid_block, x)
+        x = run(lambda h: _run_mid(self.mid_block, h), x)
         for blk in self.up_blocks:
             for r in blk.resnets:
-                x = r(x)
+                x = run(r, x)
             if hasattr(blk, "upsamplers"):
-                x = blk.upsamplers[0].conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
+                up = blk.upsamplers[0].conv
+                x = run(lambda h, up=up: up(F.interpolate(h, scale_factor=2.0, mode="nearest")), x)
         return _conv_out_f32(self.conv_out, F.silu(self.conv_norm_out(x)))
 
 
@@ -198,4 +207,4 @@ class AutoencoderKL(nn.Module):
 
     def decode(self, latents: torch.Tensor) -> torch.Tensor:
         """Unscaled latents (B, h, w, 4) NHWC -> pixels (B, H, W, 3)."""
-        return self.decoder(_conv1x1_f32(self.post_quant_conv, latents))
+        return self.decoder(_conv1x1_f32(self.post_quant_conv, latents), self.config.remat)

@@ -7,7 +7,8 @@ import pytest
 
 from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
 from photoverse_tpu_torch.models.arcface import ArcFaceResNet18
-from photoverse_tpu_torch.models.assembly import build_models
+from photoverse_tpu_torch.models.assembly import build_models, load_models
+from photoverse_tpu_torch.models.face_loss import load_face_loss
 from photoverse_tpu_torch.ops import bounds
 
 
@@ -51,7 +52,7 @@ def test_bound_is_the_larger_quotient():
 
 @pytest.mark.parametrize("entry,param", [
     (build_models, "device"), (ArcFaceResNet18.__init__, "device"),
-    (DPMSolverMultistep.step_inputs, "device"),
+    (DPMSolverMultistep.step_inputs, "device"), (load_models, "device"), (load_face_loss, "device"),
 ])
 def test_entry_points_default_to_the_card(entry, param):
     # the port's entry points run on the card unless the caller asks for

@@ -207,9 +207,9 @@ def test_load_models_refuses_a_missing_key_but_inits_the_identity_projections(ro
 
 
 def test_pt_checkpoint_reinjects_lora_and_matches_jax(root, tmp_path):
-    """A LoRA-trained `.pt` written by the JAX package, loaded without LoRA
-    flags: LoRA re-injected from its saved config, every weight of the
-    bundle equal to the JAX loader's on the same files."""
+    """A LoRA-trained `.pt` and `.msgpack` written by the JAX package,
+    loaded without LoRA flags: LoRA re-injected from the saved config, every
+    weight of the bundle equal to the JAX loader's on the same files."""
     import jax.numpy as jnp
 
     from photoverse_tpu.ckpt.checkpoint import save_progress, save_progress_pt
@@ -238,9 +238,16 @@ def test_pt_checkpoint_reinjects_lora_and_matches_jax(root, tmp_path):
     for k in want:
         assert torch.equal(got[k], want[k]), k
 
-    # the flax layout is refused with a message that says what to do
-    with pytest.raises(ValueError, match="msgpack"):
-        tassembly.load_models(root, photoverse_path=os.path.join(ck, "photoverse.msgpack"), device="cpu", **KW)
+    # the native layout loads too, LoRA re-injected from its sidecar, and
+    # gives the JAX loader's bundle on the same file
+    native = os.path.join(ck, "photoverse.msgpack")
+    _, jmodules, jparams, jcfg = jax_load_models(root, photoverse_path=native, **KW)
+    _, models, ncfg = tassembly.load_models(root, photoverse_path=native, device="cpu", **KW)
+    assert ncfg == jcfg == tcfg and models.unet.config.lora_rank == 2
+    want, got = _state(_port_of(jmodules, jparams), names), _state(models, names)
+    assert set(got) == set(want)
+    for k in want:
+        assert torch.equal(got[k], want[k]), k
 
 
 def test_cast_params_rounds_through_bf16(root):

@@ -15,7 +15,9 @@ states and schedules rtol 1e-5 / atol 1e-7 (f32 Adam arithmetic in two
 orders); the resize and ArcFace rtol 1e-4 / atol 1e-5.
 """
 
+import contextlib
 import dataclasses
+from unittest import mock
 
 import jax
 import jax.numpy as jnp
@@ -37,7 +39,7 @@ from photoverse_tpu_torch.convert import from_jax
 from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
 from photoverse_tpu_torch.engine import training as ttr
 from photoverse_tpu_torch.models import layers
-from photoverse_tpu_torch.models.arcface import ArcFaceConfig, ArcFaceResNet18
+from photoverse_tpu_torch.models.arcface import ArcFaceConfig, ArcFaceResNet18, init_arcface
 from photoverse_tpu_torch.models.face_loss import FaceLoss, face_preprocess, make_face_loss_fn
 from tests.tiny_models import LATENT, tiny_batch, tiny_bundle
 from tests.torch_tiny import port_models
@@ -328,3 +330,85 @@ def test_make_draws_shapes_and_repeatability():
     for k in ("vae_noise", "noise", "timesteps", "fusion_u"):
         assert torch.equal(a[k], b[k])
     assert torch.equal(torch.rand(4, generator=a["dropout"]), torch.rand(4, generator=b["dropout"]))
+
+
+@pytest.fixture(scope="module")
+def remat_setup():
+    """The tiny bundle on the flash route with LoRA dropout 0.1, a face
+    train step, and its no-remat gradients with the calls of the
+    differentiable flash forwards (each one lse forward) counted at the
+    UNet's and the VAE's call sites."""
+    from photoverse_tpu_torch.models import unet as unet_mod
+    from photoverse_tpu_torch.models import vae as vae_mod
+
+    modules, params = _lora_params()
+    port = port_models(modules, params, unet_overrides=dict(use_flash_attention=True, flash_min_seq=64,
+                                                            lora_dropout=0.1),
+                       vae_overrides=dict(use_flash_attention=True))
+    cfg = ttr.TrainConfig(face_loss_guidance=2.0, face_loss_timesteps=FACE_STEPS)
+    ttr.init_train_state(port, cfg)
+    arc = init_arcface(ArcFaceResNet18(ArcFaceConfig(input_size=ARC_SIZE), device="cpu"), seed=0)
+    arc.requires_grad_(False)
+    step = ttr.make_train_step(port, cfg, face_loss_fn=make_face_loss_fn(FaceLoss(arc)),
+                               face_solver=DPMSolverMultistep.create(port.schedule, FACE_STEPS))
+    L = len(port.unet.cross_attentions())
+
+    def run(remat, vae_remat=None):
+        calls = {"unet": 0, "vae": 0}
+
+        def counted(where, fn):
+            def call(q, k, v):
+                calls[where] += 1
+                return fn(q, k, v)
+            return call
+
+        draws = ttr.make_draws(torch.Generator().manual_seed(3), 2, LATENT, L, face_rows=1)
+        port.unet.config = dataclasses.replace(port.unet.config, remat=remat)
+        port.vae.config = dataclasses.replace(port.vae.config, remat=remat if vae_remat is None else vae_remat)
+        try:
+            # the tiny VAE's mid block (4 x 4 latents) on the flash route too
+            with mock.patch.object(unet_mod, "flash_sdpa_diff", counted("unet", unet_mod.flash_sdpa_diff)), \
+                    mock.patch.object(vae_mod, "flash_sdpa_stream_diff", counted("vae", vae_mod.flash_sdpa_stream_diff)), \
+                    mock.patch.object(vae_mod.AttnBlock, "FLASH_MIN_SEQ", 1):
+                metrics, grads = step.compute_grads(_face_batch(), draws)
+        finally:  # the shared bundle as the fixture built it
+            port.unet.config = dataclasses.replace(port.unet.config, remat=False)
+            port.vae.config = dataclasses.replace(port.vae.config, remat=False)
+        return metrics, grads, calls
+
+    return run, run(False)
+
+
+@pytest.mark.parametrize("restored", [True, False])
+def test_remat_gradients_equal_no_remat(remat_setup, restored):
+    """Remat at the JAX package's block boundaries (UNet resnet and
+    transformer blocks, the VAE decoder's blocks) recomputes each block in
+    the backward with the same LoRA dropout masks, so the face micro-step's
+    gradients equal the no-remat ones exactly (f32). With the explicit
+    dropout generator not restored for the recompute (the planted fault:
+    torch.utils.checkpoint restores only the default generators) they
+    differ."""
+    run, (m0, g0, c0) = remat_setup
+    ctx = contextlib.nullcontext() if restored else mock.patch.object(layers, "replaying", lambda fn, gen: fn)
+    with ctx:
+        m1, g1, c1 = run(True)
+    # each flash layer under grad runs its lse forward again in the recompute
+    assert c1 == {k: 2 * v for k, v in c0.items()} and c0["unet"] > 0 and c0["vae"] > 0
+    assert set(g1) == set(g0)
+    same = [k for k in g0 if torch.equal(g0[k], g1[k])]
+    if restored:
+        assert m1 == m0 and len(same) == len(g0), sorted(set(g0) - set(same))[:4]
+    else:
+        assert len(same) < len(g0)
+
+
+@pytest.mark.parametrize("which", ["unet", "vae"])
+def test_remat_follows_each_models_config(remat_setup, which):
+    """The UNet's remat is its config's, the VAE decoder's its
+    AutoencoderKL's config's: with only one of them set, only that model's
+    flash layers run their lse forward again, and the gradients still equal
+    the no-remat ones."""
+    run, (m0, g0, c0) = remat_setup
+    m1, g1, c1 = run(which == "unet", vae_remat=which == "vae")
+    assert c1 == {k: (2 if k == which else 1) * v for k, v in c0.items()}
+    assert m1 == m0 and all(torch.equal(g0[k], g1[k]) for k in g0)
