@@ -55,7 +55,23 @@ Phases (each one fails the run on error):
      three steps (the state load_progress returns equal to the state at
      SIGTERM bit for bit), exact launches per micro-step under remat; it
      prints s per optimizer step, peak memory, checkpoint write times, the
-     loader's rate and a profiled step's device-busy share.
+     loader's rate and a profiled step's device-busy share. The model
+     directory and the identities are written once, for this phase and the
+     next.
+  9. identity: on the same directory, (b) cli/generate.py with
+     --int8_conditioning --fast in process (512px, batch 2, 10 steps;
+     launches exact, torch._int_mm's included; the concept embedding and
+     the identity context against the same call on the bf16 route), (a) on
+     the models it loaded, int8 against bf16 at batch 64 (cosines of CLIP-L
+     and of ViT-L/14's last and collected layers, one layer's _int_mm
+     accumulators against the CPU's int32 product, conditioning times in
+     turns at batch 64 and 1, an {"int8_route": ...} line), (c) the native
+     tokenizer built on this host against the Python one and a
+     --native_tokenizer service serving one request, (d) cli/train.py
+     --recipe canonical --face_loss facenet for 2 steps (launches per
+     micro-step as ArcFace's), (e) cli/eval_face_similarity.py --json on
+     (b)'s images with random FaceNet, ArcFace and MTCNN files, on the card
+     against --cpu, and MTCNN's boxes on the card against the CPU's.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON summary (`launches` from the 50-step generation or
 the training micro-steps, `serve_launches` from the serve phase's first
@@ -136,6 +152,21 @@ SERVE_SAME_MEAN_U8 = 2.0
 SERVE_PLAIN_U8 = 14
 # seconds a request thread of the serve phase may take before the run fails
 SERVE_TIMEOUT_S = 300
+# identity phase: W8A8 int8 conditioning against the same bf16 encoders, as
+# the cosine of the flattened outputs; the JAX package's bar
+# (tests/test_quant.py)
+INT8_COS = 0.99
+# identity phase: the eval CLI's scores on the card against --cpu (both f32
+# without TF32), and MTCNN boxes on the card against the CPU in pixels
+EVAL_SCORE_ATOL = 1e-3
+MTCNN_BOX_ATOL = 0.5
+# random MTCNN weights: the face logit's bias of R- and O-Net, and the
+# P-Net biases tried in turn until a box of both the input photo and a
+# generated image survives the default thresholds (0.6, 0.7, 0.7); the
+# lower the P-Net bias, the fewer of its windows pass and the faster the
+# cascade's host work (PERF.md)
+MTCNN_FACE_BIAS = (3.0, 3.0)
+MTCNN_PNET_BIASES = (0.2, 0.5, 1.0, 2.0)
 
 
 def log(msg: str) -> None:
@@ -1379,20 +1410,48 @@ def _face_photo(rng, size: int) -> np.ndarray:
     return big.round().clip(0, 255).astype(np.uint8)
 
 
-def phase_train_cli(smi: str):
+def write_user_files(tmp: str):
+    """What a user brings, written once for the train-CLI and identity
+    phases: an SD-1.5-layout model directory of random numpy-seeded bf16
+    weights with the synthetic tokenizer, and 32 identities as 512px JPEGs.
+    Returns (model directory, data root, tokenizer)."""
+    import torch
+    from PIL import Image
+
+    from photoverse_tpu_torch.models.assembly import build_models, init_params
+
+    t0 = time.perf_counter()
+    root = os.path.join(tmp, "sd15")
+    base_models = init_params(build_models(dtype=torch.bfloat16), seed=0)
+    gib = _write_model_dir(root, base_models)
+    del base_models
+    torch.cuda.empty_cache()
+    tokenizer = _synthetic_tokenizer(root)
+    log(f"user files: SD-1.5-layout model directory ({gib:.2f} GiB of bf16 .bin, random weights from a numpy "
+        f"seed, the synthetic tokenizer) written in {time.perf_counter() - t0:.1f}s")
+    # the identities as JPEGs on disk, decoded and resized by the loader
+    data = os.path.join(tmp, "data")
+    n_ids = 32
+    os.makedirs(os.path.join(data, "images"))
+    rng = np.random.RandomState(60)
+    for i in range(n_ids):
+        Image.fromarray(_face_photo(rng, 512)).save(os.path.join(data, "images", f"{i}.jpg"), quality=95)
+    log(f"user files: {n_ids} identities written as 512px JPEGs")
+    return root, data, tokenizer
+
+
+def phase_train_cli(smi: str, root: str, data: str, tokenizer):
     """cli/train.py, the user's entry point, at SD-1.5 width with the
     canonical recipe; SIGTERM at the first stepped checkpoint, then resume."""
     import signal
 
     import torch
-    from PIL import Image
 
     from photoverse_tpu_torch.ckpt import checkpoint as ck
     from photoverse_tpu_torch.cli import train as cli
     from photoverse_tpu_torch.data.dataset import BatchLoader, CustomDataset
     from photoverse_tpu_torch.engine import training as tr
     from photoverse_tpu_torch.models import assembly
-    from photoverse_tpu_torch.models.assembly import build_models, init_params
     from photoverse_tpu_torch.models.unet import UNetConfig
     from photoverse_tpu_torch.ops import _build
 
@@ -1408,23 +1467,6 @@ def phase_train_cli(smi: str):
     n_flash = _flash_layers(UNetConfig(), 64)
     face_steps = tr.TrainConfig.face_loss_timesteps
     with tempfile.TemporaryDirectory() as tmp:
-        t0 = time.perf_counter()
-        root = os.path.join(tmp, "sd15")
-        base_models = init_params(build_models(dtype=torch.bfloat16), seed=0)
-        gib = _write_model_dir(root, base_models)
-        del base_models
-        torch.cuda.empty_cache()
-        tokenizer = _synthetic_tokenizer(root)
-        log(f"train-cli: SD-1.5-layout model directory ({gib:.2f} GiB of bf16 .bin, random weights from a numpy "
-            f"seed, the synthetic tokenizer) written in {time.perf_counter() - t0:.1f}s")
-        # the identities as JPEGs on disk, decoded and resized by the loader
-        data = os.path.join(tmp, "data")
-        n_ids = 32
-        os.makedirs(os.path.join(data, "images"))
-        rng = np.random.RandomState(60)
-        for i in range(n_ids):
-            Image.fromarray(_face_photo(rng, 512)).save(os.path.join(data, "images", f"{i}.jpg"), quality=95)
-        log(f"train-cli: {n_ids} identities written as 512px JPEGs")
         out1, out2 = os.path.join(tmp, "run1"), os.path.join(tmp, "run2")
         base = ["--recipe", "canonical", "--pretrained_model_name_or_path", root, "--data_root_path", data,
                 "--allow_random_face_model", "--checkpoint_save_steps", "2", "--checkpoint_format", "both",
@@ -1619,6 +1661,319 @@ def phase_train_cli(smi: str):
     return ok
 
 
+def _write_mtcnn(d: str, seed: int, face_bias) -> str:
+    """Random facenet_pytorch-layout P-, R- and O-Net weights from a numpy
+    seed as pnet.pt / rnet.pt / onet.pt: weights N(0, 0.1), biases
+    N(0, 0.01), PReLU slopes 0.25, each net's face-logit bias from
+    `face_bias` and its box regression head scaled by 0.02 (boxes stay on
+    the image)."""
+    import torch
+
+    from photoverse_tpu_torch.utils import mtcnn
+
+    rng = np.random.RandomState(seed)
+    os.makedirs(d)
+    heads = {"pnet": "conv4_", "rnet": "dense5_", "onet": "dense6_"}
+    for (name, cls), bias in zip((("pnet", mtcnn.PNet), ("rnet", mtcnn.RNet), ("onet", mtcnn.ONet)), face_bias):
+        sd = {}
+        for k, v in cls().state_dict().items():
+            if k.startswith("prelu"):
+                a = np.full(v.shape, 0.25)
+            else:
+                a = rng.randn(*v.shape) * (0.1 if k.endswith("weight") else 0.01)
+            if k.startswith(heads[name] + "2"):
+                a = a * 0.02
+            sd[k] = torch.from_numpy(a.astype(np.float32))
+        sd[heads[name] + "1.bias"] = torch.tensor([0.0, bias])
+        torch.save(sd, os.path.join(d, f"{name}.pt"))
+    return d
+
+
+def _cos(a, b) -> float:
+    a, b = a.double().flatten(), b.double().flatten()
+    return float(a @ b / (a.norm() * b.norm()))
+
+
+def phase_identity(smi: str, root: str, data: str):
+    """The identity-model slice at SD-1.5 width: (b) cli.generate with
+    --int8_conditioning, (a) int8 conditioning at batch 64 on the models it
+    loaded, (c) the native tokenizer and a service built with it, (d)
+    cli.train with the FaceNet face loss, (e) the face-similarity eval CLI
+    on the card against --cpu."""
+    import io
+
+    import torch
+    from PIL import Image
+    from torch import nn
+
+    from photoverse_tpu_torch.cli import eval_face_similarity as ev
+    from photoverse_tpu_torch.cli import generate as gen
+    from photoverse_tpu_torch.cli import serve
+    from photoverse_tpu_torch.cli import train as cli
+    from photoverse_tpu_torch.data.native_tokenizer import NativeCLIPTokenizer
+    from photoverse_tpu_torch.data.tokenizer import CLIPTokenizer
+    from photoverse_tpu_torch.engine import inference as inf
+    from photoverse_tpu_torch.engine import training as tr
+    from photoverse_tpu_torch.models.arcface import ArcFaceResNet18, init_arcface
+    from photoverse_tpu_torch.models.facenet import InceptionResnetV1, init_facenet
+    from photoverse_tpu_torch.models.unet import UNetConfig
+    from photoverse_tpu_torch.ops import _build, quant
+    from photoverse_tpu_torch.utils.mtcnn import MTCNN
+
+    ok = True
+
+    def check(good, what):
+        nonlocal ok
+        ok &= bool(good)
+        log(f"identity: {what} {'OK' if good else 'FAIL'}")
+
+    def bf16_route():
+        """The same modules with every Int8Linear computing as nn.Linear."""
+        return mock.patch.object(quant.Int8Linear, "forward", nn.Linear.forward)
+
+    photo = os.path.join(data, "images", "0.jpg")
+    per_layer = 6  # q, k, v, out, fc1, fc2
+    with tempfile.TemporaryDirectory() as tmp:
+        # (b) cli.generate --int8_conditioning --fast, in process
+        seen = {}
+        real_run = inf.run_inference
+
+        def spy(models, solver, example, *a, **kw):
+            seen.update(models=models, example=example)
+            _build.reset_launch_counts()
+            imgs = real_run(models, solver, example, *a, **kw)
+            torch.cuda.synchronize()
+            seen.update(counts=dict(_build.launch_counts), imgs=imgs)
+            return imgs
+
+        results = os.path.join(tmp, "generated")
+        t0 = time.perf_counter()
+        with mock.patch.object(inf, "run_inference", spy):
+            gen.main(["--model_path", root, "--checkpoint_path", "", "--input_image_path", photo,
+                      "--results_dir", results, "--num_timesteps", "10", "--resolution", "512",
+                      "--num_of_samples", "2", "--seed", "0", "--int8_conditioning", "--fast"])
+        gen_s = time.perf_counter() - t0
+        models, example, counts, imgs = seen["models"], seen["example"], seen["counts"], seen["imgs"]
+        t, v = models.text_encoder.config, models.vision_encoder.config
+        want = dict(_serving_counts(10), int8_matmul=per_layer * (t.num_layers + v.num_layers))
+        files = sorted(os.listdir(results))
+        check(t.int8_dense and v.int8_dense and files == ["generated_image0.png", "generated_image1.png"]
+              and tuple(imgs.shape) == (2, 512, 512, 3) and bool(torch.isfinite(imgs).all()) and counts == want,
+              f"(b) cli.generate --int8_conditioning --fast, 512px, batch 2, 10 steps ({gen_s:.1f}s with the load): "
+              f"{files}, finite {bool(torch.isfinite(imgs).all())}, launches {counts} (want {want})")
+        px = torch.as_tensor(example["pixel_values_clip"], device="cuda").to(models.dtype)
+        with torch.no_grad():
+            c8, i8 = inf.encode_condition(models, px, 0)
+            with bf16_route():
+                cb, ib = inf.encode_condition(models, px, 0)
+        cc, ci = _cos(c8, cb), _cos(i8, ib)
+        check(cc >= INT8_COS and ci >= INT8_COS,
+              f"(b) the CLI's conditioning against the same call without int8: concept embedding cos {cc:.6f}, "
+              f"identity context cos {ci:.6f} (bar {INT8_COS})")
+
+        # (a) int8 conditioning at full width: CLIP-L text (77 tokens) and
+        # ViT-L/14 (257 tokens) at batch 64, on the models the CLI loaded
+        B, layers = 64, models.image_encoder_layers_idx
+        ex = _example(B, seed=70)
+        px = torch.as_tensor(ex["pixel_values_clip"], device="cuda").to(models.dtype)
+        ids = torch.as_tensor(ex["text_input_ids"], device="cuda")
+        pidx = torch.as_tensor(ex["concept_placeholder_idx"], device="cuda")
+        fc1_in = []
+        hook = models.text_encoder.encoder.layers[0].mlp.fc1.register_forward_hook(
+            lambda m, inp, out: fc1_in.append(inp[0]))
+        with torch.no_grad():
+            _build.reset_launch_counts()
+            v8 = models.vision_encoder(px, collect_layers=layers)
+            t8 = models.text_encoder(ids)[0]
+            torch.cuda.synchronize()
+            int8_launches = _build.launch_counts["int8_matmul"]
+            hook.remove()
+            with bf16_route():
+                vb = models.vision_encoder(px, collect_layers=layers)
+                tb = models.text_encoder(ids)[0]
+        cos = {"vision last": _cos(v8[0], vb[0]), "text last": _cos(t8, tb)}
+        cos.update({f"vision layer {i}": _cos(a, b) for i, a, b in zip(layers, v8[1], vb[1])})
+        check(min(cos.values()) >= INT8_COS and int8_launches == per_layer * (t.num_layers + v.num_layers),
+              f"(a) batch {B}, int8 against bf16: cos {', '.join(f'{k} {c:.6f}' for k, c in cos.items())} (bar "
+              f"{INT8_COS}); Int8Linear launches {int8_launches}")
+        fc1 = models.text_encoder.encoder.layers[0].mlp.fc1
+        x_q, _ = quant.quantize_activation(fc1_in[0])
+        w_q, _ = quant.quantize_weight(fc1.weight)
+        x_q = x_q.reshape(-1, x_q.shape[-1])
+        acc = quant.int8_product(x_q, w_q).cpu()
+        plain = quant.int8_product(x_q.cpu(), w_q.cpu())
+        check(torch.equal(acc, plain),
+              f"(a) text layer 0 fc1 input {tuple(fc1_in[0].shape)} x {tuple(fc1.weight.shape)}: torch._int_mm's "
+              f"int32 accumulators equal the plain CPU int32 product exactly (max |acc| {int(plain.abs().max())})")
+        del fc1_in, v8, vb, t8, tb
+
+        def cond(b):
+            def call():
+                concept, id_ctx = inf.encode_condition(models, px[:b], None)
+                return models.text_encoder(ids[:b], concept, pidx[:b])[0], id_ctx
+            return call
+
+        timing = {}
+        with torch.no_grad():
+            for b, iters in ((B, 5), (1, 20)):
+                route = {"bf16": bf16_route, "int8": contextlib.nullcontext}
+                order = ["bf16", "int8", "int8", "bf16"] * 2
+                took = []
+                for name in order:
+                    with route[name]():
+                        took.append(_time_ms(cond(b), iters))
+                timing[b] = {}
+                for k in route:
+                    med = float(np.median([m for n, m in zip(order, took) if n == k]))
+                    timing[b][k] = (med, b / (med / 1e3))
+                log(f"identity: (a) conditioning at batch {b} (vision encoder, adapters, text encoder with the "
+                    f"concept), ms per call in turns: " + ", ".join(f"{n} {m:.4f}" for n, m in zip(order, took))
+                    + f"; median bf16 {timing[b]['bf16'][0]:.4f} ms ({timing[b]['bf16'][1]:.2f} identities/s), "
+                    f"int8 {timing[b]['int8'][0]:.4f} ms ({timing[b]['int8'][1]:.2f} identities/s) ({smi})")
+        # one product at the ViT-L/14 fc1 shape at batch 64: torch._int_mm
+        # against the bf16 matmul of the same operands
+        xs = torch.randn(B * 257, v.hidden_size, device="cuda", dtype=torch.bfloat16)
+        ws = torch.randn(v.intermediate_size, v.hidden_size, device="cuda", dtype=torch.bfloat16)
+        xq, wq = quant.quantize_activation(xs)[0], quant.quantize_weight(ws)[0]
+        mm_ms = {"int_mm": _time_ms(lambda: quant.int8_product(xq, wq), 20),
+                 "int8_matmul": _time_ms(lambda: quant.int8_matmul(xs, ws, None, torch.bfloat16), 20),
+                 "bf16": _time_ms(lambda: xs @ ws.t(), 20)}
+        ops = 2 * B * 257 * v.hidden_size * v.intermediate_size
+        log(json.dumps({"int8_route": {
+            "name": "int8_matmul", "route": "torch._int_mm", "source": "photoverse_tpu_torch/ops/quant.py",
+            "replaces": "photoverse_tpu/ops/quant.py:44 (jax.lax.dot_general int8 x int8 -> int32, not Pallas)",
+            "launches": int8_launches, "shape": [B * 257, v.hidden_size, v.intermediate_size],
+            "int_mm_ms": mm_ms["int_mm"], "int8_matmul_ms": mm_ms["int8_matmul"], "bf16_matmul_ms": mm_ms["bf16"],
+            "bound_ms": ops / 1979e12 * 1e3,
+            "conditioning_ms": {str(b): {k: x[0] for k, x in tm.items()} for b, tm in timing.items()},
+            "identities_per_s": {str(b): {k: x[1] for k, x in tm.items()} for b, tm in timing.items()},
+            "card": smi}}))
+        del xs, ws, xq, wq
+
+        # (c) the native tokenizer, built on this host, and a service with it
+        t0 = time.perf_counter()
+        native = NativeCLIPTokenizer.from_pretrained(root)
+        build_s = time.perf_counter() - t0
+        py = CLIPTokenizer.from_pretrained(root)
+        prompts = ["a photo of a *", "the photo of the *", "  THE   Photo of  * ", "photo, of. the! *?",
+                   "café photo of *", "", "a " * 50]
+        same = all(np.array_equal(native(p), py(p)) for p in prompts) and np.array_equal(native(prompts), py(prompts))
+        check(same, f"(c) NativeCLIPTokenizer (built in {build_s:.2f}s) ids equal data/tokenizer.py's on "
+                    f"{len(prompts)} prompts, one non-ASCII, one truncated")
+        args = serve.build_parser().parse_args(["--model_path", root, "--fast", "--resolution", "512",
+                                                "--native_tokenizer", "--int8_conditioning"])
+        svc = serve.PhotoVerseService(args, models=(py, models))
+        body = {"image_path": photo, "prompt": "a photo of a {}", "num_samples": 1, "steps": 10,
+                "guidance_scale": 1.0, "seed": 5}
+        req, n, seed, key = svc._prepare(body)
+        _build.reset_launch_counts()
+        res = svc.submit(req, n, seed, key)
+        served = dict(_build.launch_counts)
+        want = dict(_serving_counts(10), int8_matmul=per_layer * (t.num_layers + v.num_layers))
+        check(isinstance(svc.tokenizer, NativeCLIPTokenizer) and res["images"].shape == (1, 512, 512, 3)
+              and res["images"].dtype == np.uint8 and np.array_equal(req["text_input_ids"][0], py("a photo of a *")[0])
+              and served == want,
+              f"(c) PhotoVerseService --native_tokenizer --int8_conditioning served one request in "
+              f"{res['latency_s']:.3f}s, launches {served}")
+        del svc, models, seen, px, ids, pidx, c8, i8, cb, ib
+        torch.cuda.empty_cache()
+
+        # (d) cli.train, the canonical recipe with the FaceNet face loss
+        n_flash = _flash_layers(UNetConfig(), 64)
+        per_step = []
+        real_call = tr.TrainStep.__call__
+
+        def counted(self, batch, draws):
+            _build.reset_launch_counts()
+            out = real_call(self, batch, draws)
+            per_step.append(("face" if "face_pixel_values" in batch else "diffusion", dict(_build.launch_counts)))
+            return out
+
+        out = os.path.join(tmp, "facenet_run")
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        with mock.patch.object(tr.TrainStep, "__call__", counted):
+            fmodels, _, step = cli.main(["--recipe", "canonical", "--pretrained_model_name_or_path", root,
+                                         "--data_root_path", data, "--output_dir", out, "--face_loss", "facenet",
+                                         "--allow_random_face_model", "--max_train_steps", "2",
+                                         "--checkpoint_save_steps", "1000", "--checkpoint_format", "pt",
+                                         "--samples_save_steps", "2", "--seed", "0", "--report_to", "none"])
+        train_s = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        del fmodels
+        torch.cuda.empty_cache()
+        with open(os.path.join(out, "metrics.jsonl")) as f:
+            rows = [json.loads(line) for line in f]
+        steps = [r for r in rows if "loss_mle" in r]
+        sim = [r for r in rows if "face_similarity" in r]
+        want_counts = {kind: _train_counts(n_flash, tr.TrainConfig.face_loss_timesteps, kind == "face", remat=True)
+                       for kind in ("face", "diffusion")}
+        wrong = [(i, kind, c) for i, (kind, c) in enumerate(per_step) if c != want_counts[kind]]
+        check(step == 2 and [r["step"] for r in steps] == [1, 2]
+              and all(np.isfinite(r[k]) for r in steps for k in r) and len(sim) == 1
+              and [k for k, _ in per_step] == ["diffusion", "face"] * 2 and not wrong,
+              f"(d) cli.train --recipe canonical --face_loss facenet ({train_s:.1f}s with the load): batch 16 = 8 x 2, "
+              f"remat; losses {[(r['loss_mle'], r['loss_face']) for r in steps]}, face_similarity "
+              f"{sim[0]['face_similarity'] if sim else None}; launches per micro-step as the ArcFace recipe's "
+              f"(diffusion {want_counts['diffusion']}, face {want_counts['face']})"
+              + (f"; first wrong: {wrong[0]}" if wrong else ""))
+        log(f"identity: (d) s per optimizer step {[round(r['step_time_s'], 4) for r in steps]} (the first warms "
+            f"up), peak device memory {peak:.2f} GiB ({smi})")
+
+        # (e) the face-similarity eval CLI over (b)'s images, on the card and
+        # with --cpu, with random FaceNet and ArcFace files and random MTCNN
+        # weights
+        weights = {"facenet": os.path.join(tmp, "facenet.pt"), "arcface": os.path.join(tmp, "arcface.pt")}
+        torch.save(init_facenet(InceptionResnetV1(device="cpu"), seed=1).state_dict(), weights["facenet"])
+        torch.save(init_arcface(ArcFaceResNet18(device="cpu"), seed=1).state_dict(), weights["arcface"])
+        first = np.asarray(Image.open(os.path.join(results, files[0])))
+        face = np.asarray(Image.open(photo).convert("RGB"))
+        for p_bias in MTCNN_PNET_BIASES:
+            biases = (p_bias, *MTCNN_FACE_BIAS)
+            mt = _write_mtcnn(os.path.join(tmp, f"mtcnn_{p_bias}"), 80, biases)
+            cpu_det = MTCNN.from_torch_weights(mt, device="cpu")
+            t0 = time.perf_counter()
+            found = [cpu_det.detect(x)[0] for x in (face, first)]
+            log(f"identity: (e) random MTCNN, face-logit biases {biases}: boxes on the input photo and on "
+                f"{files[0]} {[None if f is None else len(f) for f in found]} ({time.perf_counter() - t0:.2f}s "
+                f"on the CPU)")
+            if all(f is not None for f in found):
+                break
+
+        def run_eval(model, cpu):
+            argv = ["--input_image", photo, "--results_dir", results, "--model", model, "--model_weights",
+                    weights[model], "--mtcnn_weights", mt, "--json"] + (["--cpu"] if cpu else [])
+            buf, err = io.StringIO(), io.StringIO()
+            t = time.perf_counter()
+            with contextlib.redirect_stdout(buf), contextlib.redirect_stderr(err):
+                ev.main(argv)
+            secs = time.perf_counter() - t
+            if err.getvalue().strip():
+                log(f"  stderr: {err.getvalue().strip()}")
+            return json.loads(buf.getvalue().strip().splitlines()[-1]), secs
+
+        for model in ("facenet", "arcface"):
+            card, card_s = run_eval(model, cpu=False)
+            host, host_s = run_eval(model, cpu=True)
+            diff = max(abs(card["scores"][k] - host["scores"][k]) for k in host["scores"])
+            check(list(card["scores"]) == list(host["scores"]) == files and diff <= EVAL_SCORE_ATOL
+                  and any(s != 0.0 for s in host["scores"].values()),
+                  f"(e) eval --model {model} --json: card {card['scores']} mean {card['mean']:.6f}, --cpu mean "
+                  f"{host['mean']:.6f}, largest difference {diff:.3g} (tol {EVAL_SCORE_ATOL}); s per image card "
+                  f"{card_s / (1 + len(files)):.3f}, cpu {host_s / (1 + len(files)):.3f} (with the load) ({smi})")
+        t0 = time.perf_counter()
+        bc, _ = MTCNN.from_torch_weights(mt, device="cuda").detect(first)
+        card_s = time.perf_counter() - t0
+        bh, _ = cpu_det.detect(first)
+        same_n = bc is not None and bh is not None and len(bc) == len(bh)
+        box_diff = float(np.abs(bc - bh).max()) if same_n else float("inf")
+        check(same_n and box_diff <= MTCNN_BOX_ATOL,
+              f"(e) MTCNN detect on {files[0]} at thresholds {cpu_det.thresholds}, face-logit biases {biases}: "
+              f"card {None if bc is None else len(bc)} boxes ({card_s:.2f}s with the load), cpu "
+              f"{None if bh is None else len(bh)}, largest box difference {box_diff:.3g} px (tol {MTCNN_BOX_ATOL})")
+    return ok
+
+
 # file:line of each TPU kernel's pallas_call in the JAX package
 TPU_KERNELS = {
     "flash_sdpa": "photoverse_tpu/ops/flash_sdpa.py:154",
@@ -1643,13 +1998,16 @@ def main() -> int:
     serve_launches, serve_ok = phase_serve(models)
     del models
     train_launches, train_ok = phase_train()
-    cli_ok = phase_train_cli(smi)
+    with tempfile.TemporaryDirectory() as tmp:
+        root, data, tokenizer = write_user_files(tmp)
+        cli_ok = phase_train_cli(smi, root, data, tokenizer)
+        identity_ok = phase_identity(smi, root, data)
     # each kernel's launches from the run of the path it lies on: the
     # 50-step generation, or the four training micro-steps; the serving
     # kernels also from the server's first coalesced batch
     launches = {n: results["g1"]["counts"].get(n, 0) if n in SERVING_KERNELS else train_launches.get(n, 0)
                 for n in TPU_KERNELS}
-    ok = (all(r["ok"] for r in rows) and pipe_ok and samplers_ok and serve_ok and train_ok and cli_ok
+    ok = (all(r["ok"] for r in rows) and pipe_ok and samplers_ok and serve_ok and train_ok and cli_ok and identity_ok
           and all(v > 0 for v in launches.values())
           and all(serve_launches.get(n, 0) > 0 for n in SERVING_KERNELS))
     summary = {"kernels": []}

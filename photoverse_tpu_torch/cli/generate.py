@@ -6,9 +6,14 @@ Usage:
       --checkpoint_path photoverse.pt --input_image_path face.jpg \\
       --text "a photo of a {}" --num_timesteps 25 --guidance_scale 6
 
+`--int8_conditioning` puts the frozen CLIP encoders' layers on W8A8 int8
+(ops/quant.py). Its activation scale is one per tensor, so a row's
+conditioning depends on the other rows of its encoder call, as in the JAX
+package.
+
 Flags whose code the port does not have yet (`--sharding` other than none,
-`--data_parallel`, `--model_parallel`, `--int8_conditioning`) are parsed and
-refused with a message; none is silently ignored.
+`--data_parallel`, `--model_parallel`) are parsed and refused with a
+message; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -19,7 +24,7 @@ import os
 import numpy as np
 
 UNPORTED = ("is not ported to photoverse_tpu_torch yet (ROADMAP.md, Queue 1: "
-            "`parallel/` via torch.distributed, `ops/quant.py`); run without it")
+            "`parallel/` via torch.distributed); run without it")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -60,7 +65,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "--fast / --bf16 the weights are bf16 already; with "
                         "f32 compute this gives what bf16-stored weights compute")
     p.add_argument("--int8_conditioning", action="store_true",
-                   help="W8A8 conditioning encoders; not ported yet (refused)")
+                   help="W8A8 dynamic-int8 projections and MLPs in the frozen "
+                        "CLIP encoders (inference-only); the activation scale "
+                        "is per tensor, so rows encoded together affect each other")
     p.add_argument("--data_parallel", action="store_true",
                    help="Alias for --sharding data; not ported yet (refused)")
     p.add_argument("--sharding", type=str, default="none",
@@ -99,10 +106,6 @@ def refuse_unported(args) -> None:
         asked.append("--data_parallel")
     if getattr(args, "model_parallel", 0):
         asked.append("--model_parallel")
-    if getattr(args, "int8_conditioning", False):
-        asked.append("--int8_conditioning")
-    if getattr(args, "native_tokenizer", False):
-        asked.append("--native_tokenizer")
     if asked:
         raise SystemExit(f"{', '.join(asked)} {UNPORTED}")
 
@@ -206,6 +209,7 @@ def main(argv=None):
         fast_attention_scores=args.fast,
         fast_norms=args.fast,
         fused_blocks=args.fast and on_card,
+        int8_conditioning=args.int8_conditioning,
         device=device,
     )
     if args.bf16_params:

@@ -15,7 +15,11 @@ Two execution modes:
                      (engine/inference.py: draw_initial_noise,
                      make_row_generators), so its images do not depend on
                      the batch it landed in beyond the rounding of another
-                     batch size's algorithms.
+                     batch size's algorithms. Under --int8_conditioning
+                     the CLIP encoders' activation scale is one per
+                     tensor, so a coalesced request's conditioning depends
+                     on its batch-mates and is not equal to its solo run
+                     (as in the JAX package).
 
 Device use, both modes:
   * images are denormalized and packed to uint8 on the device, with the
@@ -104,7 +108,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="round the loaded weights through bfloat16 (under "
                         "--fast they are bf16 already)")
     p.add_argument("--int8_conditioning", action="store_true",
-                   help="W8A8 conditioning encoders; not ported yet (refused)")
+                   help="W8A8 dynamic-int8 projections and MLPs in the frozen "
+                        "CLIP encoders (inference-only); the activation scale "
+                        "is per tensor, so coalesced requests are not equal "
+                        "to their solo runs")
     p.add_argument("--warmup", action="store_true",
                    help="run the default configuration at startup")
     p.add_argument("--sharding", type=str, default="none",
@@ -114,7 +121,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--cpu", action="store_true",
                    help="Run on the CPU (the default is the GPU)")
     p.add_argument("--native_tokenizer", action="store_true",
-                   help="C++ BPE tokenizer; not ported yet (refused)")
+                   help="C++ BPE tokenizer (native/tokenizer.cc, built with "
+                        "g++ at start-up); a failed build stops the server, "
+                        "there is no fallback to the Python tokenizer")
     return p
 
 
@@ -207,6 +216,7 @@ class PhotoVerseService:
                 fast_attention_scores=args.fast,
                 fast_norms=args.fast,
                 fused_blocks=args.fast and on_card,
+                int8_conditioning=args.int8_conditioning,
                 device=self.device,
             )
             if args.bf16_params:
@@ -215,6 +225,11 @@ class PhotoVerseService:
             self.tokenizer, self.models = models
             if self.models.device.type != self.device.type:
                 raise ValueError(f"the models are on {self.models.device}, the service on {self.device}")
+        if args.native_tokenizer:
+            # no fallback: a failed build raises NativeBuildError
+            from photoverse_tpu_torch.data.native_tokenizer import NativeCLIPTokenizer
+
+            self.tokenizer = NativeCLIPTokenizer.from_pretrained(args.model_path, subfolder="tokenizer")
         if on_card:
             # the first-use build must not race between threads
             from photoverse_tpu_torch.ops import _build
@@ -226,8 +241,9 @@ class PhotoVerseService:
         self._pipelines = {}
         self._shapes = []  # (batch, steps, guidance, scheduler) run so far, in order
         # guards _pipelines, _shapes and _stats against handler / worker races
-        # (handler threads tokenize without a lock: the BPE's merge cache is
-        # idempotent and its updates are atomic under the GIL)
+        # (handler threads tokenize without a lock: the Python BPE's merge
+        # cache is idempotent and its updates are atomic under the GIL, the
+        # native tokenizer's C++ cache is guarded by a mutex)
         self._state_lock = threading.Lock()
         # the sequential service runs one submit() at a time, whatever
         # threads call it (under dynamic batching the worker is the only

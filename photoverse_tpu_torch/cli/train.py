@@ -8,7 +8,7 @@ Usage:
 
 The flow of the JAX CLI without its mesh: the train batch split into
 accumulation micro-steps when it exceeds --max_microbatch_per_chip, remat,
-the face loss (ArcFace), the fused face-accumulation window (the face
+the face loss (ArcFace or FaceNet), the fused face-accumulation window (the face
 branch on each window's last micro-step, wider and weighted, through a
 second TrainStep that shares the Optimizer), uint8 pixel transfer, resume
 from a native checkpoint (its random draws reseeded with seed + step and
@@ -19,8 +19,7 @@ in-train face_similarity metric, and a torch.profiler window.
 
 Refused with a message, never ignored: --fsdp, --tensor_parallel > 1,
 --shard_optimizer_state (multi-GPU, not ported yet), --push_to_hub (needs
-the network), --face_loss facenet (FaceNet is not ported yet) and
---mixed_precision fp16 (the JAX CLI refuses it too).
+the network) and --mixed_precision fp16 (the JAX CLI refuses it too).
 """
 
 from __future__ import annotations
@@ -180,8 +179,6 @@ def refuse_unported(args) -> None:
         asked.append(f"--tensor_parallel {args.tensor_parallel}")
     if args.shard_optimizer_state:
         asked.append("--shard_optimizer_state")
-    if args.face_loss == "facenet":
-        asked.append("--face_loss facenet")
     if asked:
         raise SystemExit(f"{', '.join(asked)} {UNPORTED}")
     if args.push_to_hub:

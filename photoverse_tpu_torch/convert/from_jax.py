@@ -11,6 +11,7 @@ Pure numpy: nothing here imports jax.
 
 from __future__ import annotations
 
+import re
 from typing import Dict, Mapping
 
 import numpy as np
@@ -23,8 +24,10 @@ __all__ = [
     "vae_state_dict",
     "unet_state_dict",
     "arcface_state_dict",
+    "facenet_state_dict",
     "load_jax_params",
     "load_jax_arcface",
+    "load_jax_facenet",
 ]
 
 StateDict = Dict[str, np.ndarray]
@@ -237,6 +240,35 @@ def arcface_state_dict(tree: Mapping, config) -> StateDict:
 def load_jax_arcface(model, tree) -> None:
     """Copy a JAX ArcFaceResNet18 tree (numpy leaves) into the port's model."""
     _load(model, arcface_state_dict(tree, model.config))
+
+
+def facenet_state_dict(tree: Mapping) -> StateDict:
+    """InceptionResnetV1 params -> facenet_pytorch keys: `repeat_1_3` ->
+    `repeat_1.3` and `branch1_2` -> `branch1.2` (nn.Sequential indices),
+    conv kernels HWIO -> OIHW, `last_linear` transposed, BatchNorm
+    scale / bias / mean / var -> weight / bias / running_mean / running_var."""
+    out: StateDict = {}
+
+    def walk(prefix: str, node: Mapping) -> None:
+        if "mean" in node:
+            _bn(out, prefix, node)
+        elif "kernel" in node:
+            k = _a(node["kernel"])
+            out[prefix + ".weight"] = k.transpose(3, 2, 0, 1) if k.ndim == 4 else k.T
+            if "bias" in node:
+                out[prefix + ".bias"] = _a(node["bias"])
+        else:
+            for name, child in node.items():
+                name = re.sub(r"^(repeat_\d|branch\d)_(\d+)$", r"\1.\2", name)
+                walk(f"{prefix}.{name}" if prefix else name, child)
+
+    walk("", tree)
+    return out
+
+
+def load_jax_facenet(model, tree) -> None:
+    """Copy a JAX InceptionResnetV1 tree (numpy leaves) into the port's model."""
+    _load(model, facenet_state_dict(tree))
 
 
 def _load(module: torch.nn.Module, sd: StateDict) -> None:

@@ -222,6 +222,13 @@ class TrainStep:
                  face_weight_scale: float = 1.0):
         if face_loss_fn is not None and face_solver is None:
             raise ValueError("the face loss needs face_solver")
+        # Int8Linear rounds its operands and round() has zero gradient: the
+        # adapters' gradients through the text encoder would vanish while the
+        # loss stays finite, so refuse instead of stalling silently
+        if models.text_encoder.config.int8_dense or models.vision_encoder.config.int8_dense:
+            raise ValueError("int8_conditioning/int8_dense is inference-only: the quantizer's round() has "
+                             "zero gradient and would silently stall adapter training. Build the training "
+                             "models without it.")
         self.models = models
         self.cfg = cfg
         self.optimizer = optimizer

@@ -74,6 +74,7 @@ def build_models(
     fast_attention_scores: bool = False,
     fast_norms: bool = False,
     fused_blocks: bool = False,
+    int8_conditioning: bool = False,
     unet_config: Optional[UNetConfig] = None,
     vae_config: Optional[VAEConfig] = None,
     text_config: Optional[CLIPTextConfig] = None,
@@ -84,7 +85,9 @@ def build_models(
     `device` (the card unless the caller asks for the CPU) in `dtype`, in
     eval mode. The flags build the default configs;
     a config passed in is used as it is, as in the JAX package (LoRA comes
-    in through `unet_config`)."""
+    in through `unet_config`). `int8_conditioning` sets `int8_dense` on both
+    CLIP configs: W8A8 int8 layers in the frozen encoders (ops/quant.py),
+    inference-only."""
     unet_cfg = unet_config or UNetConfig(
         use_flash_attention=use_flash_attention,
         fast_attention_scores=fast_attention_scores,
@@ -93,6 +96,9 @@ def build_models(
     vae_cfg = vae_config or VAEConfig(use_flash_attention=use_flash_attention, fast_norms=fast_norms)
     text_cfg = text_config or CLIPTextConfig()
     vision_cfg = vision_config or CLIPVisionConfig()
+    if int8_conditioning:
+        text_cfg = dataclasses.replace(text_cfg, int8_dense=True)
+        vision_cfg = dataclasses.replace(vision_cfg, int8_dense=True)
     K = extra_num_tokens + 1
     with torch.device(device):
         adapter = lambda: PhotoVerseAdapter(  # noqa: E731
@@ -245,6 +251,7 @@ def load_models(
     fast_attention_scores: bool = False,
     fast_norms: bool = False,
     fused_blocks: bool = False,
+    int8_conditioning: bool = False,
     remat: bool = False,
     seed: int = 0,
     device="cuda",
@@ -260,7 +267,8 @@ def load_models(
     `init_params(seed)` until `photoverse_path` (a PhotoVerse
     checkpoint, `.pt` or native `.msgpack`) overlays them. A checkpoint
     trained with LoRA re-injects LoRA from its saved config even when the
-    caller passed no LoRA flags. `remat` recomputes the UNet's and the VAE
+    caller passed no LoRA flags. `int8_conditioning` builds both CLIP
+    encoders with W8A8 int8 layers (inference-only). `remat` recomputes the UNet's and the VAE
     decoder's block activations in the backward (training).
     The weights are stored in `dtype`, on `device` (the card unless the
     caller asks for the CPU). Returns (tokenizer, models, lora_config)."""
@@ -292,8 +300,8 @@ def load_models(
                                   remat=remat)
     models = build_models(
         extra_num_tokens=extra_num_tokens, image_encoder_layers_idx=image_encoder_layers_idx,
-        dtype=dtype, unet_config=unet_cfg, vae_config=vae_cfg, text_config=text_cfg,
-        vision_config=_vision_config_from(ie_path), device=device)
+        dtype=dtype, int8_conditioning=int8_conditioning, unet_config=unet_cfg, vae_config=vae_cfg,
+        text_config=text_cfg, vision_config=_vision_config_from(ie_path), device=device)
     models.schedule = _schedule_from(root)
     init_params(models, seed)
 

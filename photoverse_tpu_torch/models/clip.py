@@ -11,6 +11,10 @@ names follow the transformers CLIPTextModel / CLIPVisionModel state dicts
   - The vision encoder returns its last hidden state plus the hidden
     states listed in `collect_layers`, in HF hidden_states indexing
     (0 = embedding output after pre-LN, i = output of encoder layer i).
+  - `int8_dense` (inference-only) puts each layer's q/k/v/out projections
+    and its MLP's fc1/fc2 on the W8A8 int8 product (ops/quant.py); the
+    embeddings, the layer norms and everything outside the layers stay as
+    they are, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ import torch
 from torch import nn
 
 from photoverse_tpu_torch.ops.injection import inject_concept_embeddings
+from photoverse_tpu_torch.ops.quant import Int8Linear
 
 __all__ = ["CLIPTextConfig", "CLIPVisionConfig", "CLIPTextEncoder", "CLIPVisionEncoder", "quick_gelu"]
 
@@ -35,6 +40,8 @@ class CLIPTextConfig:
     intermediate_size: int = 3072
     max_position_embeddings: int = 77
     layer_norm_eps: float = 1e-5
+    # W8A8 int8 projections and MLPs (ops/quant.py); inference-only
+    int8_dense: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -47,6 +54,8 @@ class CLIPVisionConfig:
     patch_size: int = 14
     num_channels: int = 3
     layer_norm_eps: float = 1e-5
+    # see CLIPTextConfig.int8_dense
+    int8_dense: bool = False
 
     @property
     def seq_len(self) -> int:
@@ -58,13 +67,13 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class _SelfAttn(nn.Module):
-    def __init__(self, dim: int, heads: int):
+    def __init__(self, dim: int, heads: int, linear=nn.Linear):
         super().__init__()
         self.heads = heads
-        self.q_proj = nn.Linear(dim, dim)
-        self.k_proj = nn.Linear(dim, dim)
-        self.v_proj = nn.Linear(dim, dim)
-        self.out_proj = nn.Linear(dim, dim)
+        self.q_proj = linear(dim, dim)
+        self.k_proj = linear(dim, dim)
+        self.v_proj = linear(dim, dim)
+        self.out_proj = linear(dim, dim)
 
     def forward(self, x: torch.Tensor, mask: Optional[torch.Tensor]) -> torch.Tensor:
         B, S, D = x.shape
@@ -81,10 +90,10 @@ class _SelfAttn(nn.Module):
 
 
 class _MLP(nn.Module):
-    def __init__(self, dim: int, hidden: int):
+    def __init__(self, dim: int, hidden: int, linear=nn.Linear):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, dim)
+        self.fc1 = linear(dim, hidden)
+        self.fc2 = linear(hidden, dim)
 
     def forward(self, x):
         return self.fc2(quick_gelu(self.fc1(x)))
@@ -93,12 +102,12 @@ class _MLP(nn.Module):
 class _CLIPLayer(nn.Module):
     """x += attn(ln1(x)); x += mlp(ln2(x))."""
 
-    def __init__(self, dim: int, heads: int, hidden: int, eps: float):
+    def __init__(self, dim: int, heads: int, hidden: int, eps: float, linear=nn.Linear):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(dim, eps=eps)
-        self.self_attn = _SelfAttn(dim, heads)
+        self.self_attn = _SelfAttn(dim, heads, linear)
         self.layer_norm2 = nn.LayerNorm(dim, eps=eps)
-        self.mlp = _MLP(dim, hidden)
+        self.mlp = _MLP(dim, hidden, linear)
 
     def forward(self, x, mask=None):
         x = x + self.self_attn(self.layer_norm1(x), mask)
@@ -106,9 +115,12 @@ class _CLIPLayer(nn.Module):
 
 
 class _Encoder(nn.Module):
-    def __init__(self, n: int, dim: int, heads: int, hidden: int, eps: float):
+    def __init__(self, c):
         super().__init__()
-        self.layers = nn.ModuleList(_CLIPLayer(dim, heads, hidden, eps) for _ in range(n))
+        linear = Int8Linear if c.int8_dense else nn.Linear
+        self.layers = nn.ModuleList(
+            _CLIPLayer(c.hidden_size, c.num_heads, c.intermediate_size, c.layer_norm_eps, linear)
+            for _ in range(c.num_layers))
 
 
 class _TextEmbeddings(nn.Module):
@@ -126,7 +138,7 @@ class CLIPTextEncoder(nn.Module):
         super().__init__()
         self.config = c = config
         self.embeddings = _TextEmbeddings(c)
-        self.encoder = _Encoder(c.num_layers, c.hidden_size, c.num_heads, c.intermediate_size, c.layer_norm_eps)
+        self.encoder = _Encoder(c)
         self.final_layer_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
 
     def forward(
@@ -168,7 +180,7 @@ class CLIPVisionEncoder(nn.Module):
         self.config = c = config
         self.embeddings = _VisionEmbeddings(c)
         self.pre_layrnorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
-        self.encoder = _Encoder(c.num_layers, c.hidden_size, c.num_heads, c.intermediate_size, c.layer_norm_eps)
+        self.encoder = _Encoder(c)
         # applies only to the pooled CLS output, which the pipeline does not
         # use; kept so the parameter set matches the real checkpoint
         self.post_layernorm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)

@@ -1,10 +1,10 @@
-"""Facial identity loss with the ArcFace embedder. Port of
-photoverse_tpu/models/face_loss.py (the FaceNet branch is not ported;
-`load_face_loss` refuses it).
+"""Facial identity loss with the ArcFace or the FaceNet embedder. Port of
+photoverse_tpu/models/face_loss.py.
 
-  - grayscale (Rec.601 weights), bilinear resize to the embedder's input
-    (F.interpolate, align_corners=False, no antialias: the JAX package's
-    jax.image.resize(..., antialias=False));
+  - arcface: grayscale (Rec.601 weights), bilinear resize to 128 px;
+  - facenet: RGB, bilinear resize to 160 px;
+    both with F.interpolate(align_corners=False, antialias=False), the JAX
+    package's jax.image.resize(..., antialias=False);
   - optional /127.5 - 1 normalization (off in training, which feeds images
     in [-1, 1]);
   - loss = cosine embedding loss of emb(x) and emb(x_gen): 1 - cos when
@@ -20,6 +20,7 @@ from torch import nn
 import torch.nn.functional as F
 
 from photoverse_tpu_torch.models.arcface import ArcFaceResNet18, init_arcface
+from photoverse_tpu_torch.models.facenet import InceptionResnetV1, init_facenet
 
 __all__ = ["rgb_to_grayscale", "face_preprocess", "FaceLoss", "make_face_loss_fn", "load_face_loss"]
 
@@ -32,10 +33,14 @@ def rgb_to_grayscale(images: torch.Tensor) -> torch.Tensor:
     return torch.tensordot(images, w.to(images.dtype), dims=([-1], [0]))[..., None]
 
 
-def face_preprocess(images: torch.Tensor, normalize: bool = True, size: int = 128) -> torch.Tensor:
-    """NHWC images -> ArcFace's NHWC input: grayscale, bilinear resize to
-    `size`, optional /127.5 - 1."""
-    if images.shape[-1] == 3:
+def face_preprocess(images: torch.Tensor, model_name: str, normalize: bool = True,
+                    size: Optional[int] = None) -> torch.Tensor:
+    """NHWC images -> the embedder's NHWC input: grayscale for arcface,
+    bilinear resize to `size` (128 for arcface, 160 for facenet when not
+    given), optional /127.5 - 1."""
+    if size is None:
+        size = 128 if model_name == "arcface" else 160
+    if model_name == "arcface" and images.shape[-1] == 3:
         images = rgb_to_grayscale(images)
     out = F.interpolate(images.permute(0, 3, 1, 2), size=(size, size), mode="bilinear",
                         align_corners=False, antialias=False).permute(0, 2, 3, 1)
@@ -45,19 +50,22 @@ def face_preprocess(images: torch.Tensor, normalize: bool = True, size: int = 12
 
 
 class FaceLoss(nn.Module):
-    """(x, x_gen) -> cosine embedding loss under a frozen ArcFace."""
+    """(x, x_gen) -> cosine embedding loss under a frozen ArcFace or FaceNet."""
 
-    def __init__(self, model: ArcFaceResNet18):
+    def __init__(self, model: nn.Module):
         super().__init__()
         self.model = model
+        self.model_name = "facenet" if isinstance(model, InceptionResnetV1) else "arcface"
 
     @property
     def input_size(self) -> int:
+        if self.model_name == "facenet":
+            return self.model.input_size
         return self.model.config.input_size
 
     def embed(self, images: torch.Tensor, normalize: bool = True) -> torch.Tensor:
-        x = face_preprocess(images, normalize, size=self.input_size)
-        return self.model(x.to(self.model.conv1.weight.dtype))
+        x = face_preprocess(images, self.model_name, normalize, size=self.input_size)
+        return self.model(x.to(next(self.model.parameters()).dtype))
 
     def forward(self, x: torch.Tensor, x_gen: torch.Tensor, maximize: bool = True,
                 normalize: bool = True) -> torch.Tensor:
@@ -80,19 +88,26 @@ def make_face_loss_fn(loss: FaceLoss) -> Callable[[torch.Tensor, torch.Tensor], 
 
 
 def load_face_loss(model_name: str, weights_path: Optional[str] = None, device="cuda") -> FaceLoss:
-    """The frozen FaceLoss for `model_name`: ArcFace from a reference
-    ResNetFace `.pt` state dict (a DataParallel "module." prefix and
-    BatchNorm's num_batches_tracked are dropped; every other key must
-    match), or with random weights (init_arcface, seed 0) when no path is
-    given. FaceNet is not ported and is refused."""
-    if model_name != "arcface":
-        raise ValueError(f"--face_loss {model_name} is not ported to photoverse_tpu_torch yet; use arcface")
-    model = ArcFaceResNet18(device=device)
+    """The frozen FaceLoss for `model_name`, with random weights (seed 0)
+    when no path is given, else from a `.pt` state dict loaded strictly:
+    arcface from a reference ResNetFace file (a DataParallel "module."
+    prefix and BatchNorm's num_batches_tracked are dropped), facenet from a
+    facenet_pytorch InceptionResnetV1 file (its classifier `logits.*` and
+    num_batches_tracked are dropped). Every other key must match."""
+    if model_name not in ("arcface", "facenet"):
+        raise ValueError(f"unknown face model {model_name!r}; use arcface or facenet")
+    if model_name == "arcface":
+        model, init = ArcFaceResNet18(device=device), init_arcface
+    else:
+        model, init = InceptionResnetV1(device=device), init_facenet
     if weights_path is None:
-        init_arcface(model, seed=0)
+        init(model, seed=0)
     else:
         sd = torch.load(weights_path, map_location="cpu", weights_only=True)
-        sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()
-              if not k.endswith("num_batches_tracked")}
-        model.load_state_dict(sd, strict=True)
+        if model_name == "arcface":
+            sd = {k[len("module."):] if k.startswith("module.") else k: v for k, v in sd.items()}
+        else:
+            sd = {k: v for k, v in sd.items() if not k.startswith("logits.")}
+        model.load_state_dict({k: v for k, v in sd.items() if not k.endswith("num_batches_tracked")},
+                              strict=True)
     return FaceLoss(model.eval().requires_grad_(False))

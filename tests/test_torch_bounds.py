@@ -9,6 +9,9 @@ from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
 from photoverse_tpu_torch.models.arcface import ArcFaceResNet18
 from photoverse_tpu_torch.models.assembly import build_models, load_models
 from photoverse_tpu_torch.models.face_loss import load_face_loss
+from photoverse_tpu_torch.models.facenet import InceptionResnetV1
+from photoverse_tpu_torch.utils.face_similarity import FaceSimilarity
+from photoverse_tpu_torch.utils.mtcnn import MTCNN
 from photoverse_tpu_torch.ops import bounds
 
 
@@ -53,6 +56,8 @@ def test_bound_is_the_larger_quotient():
 @pytest.mark.parametrize("entry,param", [
     (build_models, "device"), (ArcFaceResNet18.__init__, "device"),
     (DPMSolverMultistep.step_inputs, "device"), (load_models, "device"), (load_face_loss, "device"),
+    (InceptionResnetV1.__init__, "device"), (MTCNN.from_torch_weights, "device"),
+    (FaceSimilarity.__init__, "device"),
 ])
 def test_entry_points_default_to_the_card(entry, param):
     # the port's entry points run on the card unless the caller asks for

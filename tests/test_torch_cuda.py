@@ -500,3 +500,32 @@ def test_service_worker_thread_launches_kernels_and_reuses_the_build(gen, tmp_pa
         print(f"seed {seed}: coalesced vs solo {np.abs(solo - out[seed]['images'].astype(int)).max()} / 255")
         assert np.abs(solo - out[seed]["images"].astype(int)).max() <= 8
     assert np.abs(out[3]["images"].astype(int) - out[7]["images"].astype(int)).max() > 16
+
+
+@pytest.mark.parametrize("M,K,N", [(154, 768, 768), (2 * 257, 1024, 4096), (3, 768, 3072)])
+def test_int8_product_on_the_card_equals_the_plain_product(gen, M, K, N):
+    # the conditioning encoders' shapes (CLIP-L text and ViT-L/14 at batch
+    # 2) and fewer rows than torch._int_mm takes (padded): integer
+    # products, so the accumulators must be equal, not close
+    from photoverse_tpu_torch.ops import quant
+
+    x_q = torch.randint(-127, 128, (M, K), generator=gen, device="cuda").to(torch.int8)
+    w_q = torch.randint(-127, 128, (N, K), generator=gen, device="cuda").to(torch.int8)
+    before = _build.launch_counts["int8_matmul"]
+    got = quant.int8_product(x_q, w_q)
+    torch.cuda.synchronize()
+    assert _build.launch_counts["int8_matmul"] == before + 1
+    assert got.dtype == torch.int32 and got.shape == (M, N)
+    assert torch.equal(got.cpu(), quant.int8_product(x_q.cpu(), w_q.cpu()))
+    # the whole route: the same codes and scales as the CPU's (the JAX
+    # package's numerics), so the same f32 output
+    x = torch.randn(M, K, generator=gen, device="cuda")
+    w = torch.randn(N, K, generator=gen, device="cuda") / 32
+    b = torch.randn(N, generator=gen, device="cuda")
+    for f, t in ((quant.quantize_activation, x), (quant.quantize_weight, w)):
+        for card, host in zip(f(t), f(t.cpu())):
+            assert torch.equal(card.cpu(), host)
+    assert torch.equal(quant.int8_matmul(x, w, b, torch.float32).cpu(),
+                       quant.int8_matmul(x.cpu(), w.cpu(), b.cpu(), torch.float32))
+    with pytest.raises(ValueError, match="multiples of 8"):
+        quant.int8_product(x_q[:, :K - 4].contiguous(), w_q[:, :K - 4].contiguous())

@@ -113,7 +113,10 @@ def test_port_imports_neither_pillow_nor_jax_at_import_time():
             "photoverse_tpu_torch.data.preprocessing", "photoverse_tpu_torch.utils.image",
             "photoverse_tpu_torch.data.tokenizer", "photoverse_tpu_torch.data.prompts",
             "photoverse_tpu_torch.models.assembly", "photoverse_tpu_torch.ckpt.checkpoint",
-            "photoverse_tpu_torch.convert.from_diffusers", "photoverse_tpu_torch.engine.inference"]
+            "photoverse_tpu_torch.convert.from_diffusers", "photoverse_tpu_torch.engine.inference",
+            "photoverse_tpu_torch.cli.eval_face_similarity", "photoverse_tpu_torch.utils.face_similarity",
+            "photoverse_tpu_torch.utils.mtcnn", "photoverse_tpu_torch.models.facenet",
+            "photoverse_tpu_torch.ops.quant", "photoverse_tpu_torch.data.native_tokenizer"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in ('PIL', 'jax', 'flax', 'photoverse_tpu', 'transformers') if m in sys.modules]\n"
             "assert not bad, bad\n")

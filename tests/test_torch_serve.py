@@ -142,8 +142,11 @@ def test_generate_cli_mask_noised_image_and_ancestral_sampler(ws):
 
 @pytest.mark.parametrize("flags,named", [
     (["--sharding", "spatial"], "--sharding spatial"), (["--data_parallel"], "--data_parallel"),
-    (["--model_parallel", "2"], "--model_parallel"), (["--int8_conditioning"], "--int8_conditioning"),
-    (["--sharding", "tensor", "--int8_conditioning"], "--sharding tensor, --int8_conditioning"),
+    (["--model_parallel", "2"], "--model_parallel"),
+    # --int8_conditioning runs (tests/test_torch_quant.py); these two cases
+    # asserted its refusal and now hold other multi-GPU flags
+    (["--data_parallel", "--model_parallel", "2"], "--data_parallel, --model_parallel"),
+    (["--sharding", "tensor", "--int8_conditioning"], "--sharding tensor"),
 ])
 def test_generate_cli_refuses_unported_flags(ws, flags, named):
     d, root, face = ws
@@ -226,10 +229,32 @@ def test_service_prepare_matches_jax(ws, seq, base, req, by_path):
         assert 0 <= got_seed < 2**32 and svc._prepare(body)[2] != got_seed
 
 
-@pytest.mark.parametrize("flags", [["--sharding", "tensor"], ["--int8_conditioning"], ["--native_tokenizer"]])
+# --int8_conditioning and --native_tokenizer run (the next test); the cases
+# that asserted their refusal now pair them with a sharding mode, which is
+# still refused
+@pytest.mark.parametrize("flags", [["--sharding", "tensor"], ["--sharding", "spatial", "--int8_conditioning"],
+                                   ["--sharding", "tensor", "--native_tokenizer"]])
 def test_serve_refuses_unported_flags(ws, flags):
-    with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1"):
+    with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1") as e:
         _service(ws[1], *flags)
+    assert str(e.value).startswith(f"--sharding {flags[1]} is not ported")
+
+
+def test_serve_int8_conditioning_and_native_tokenizer(ws, base):
+    from photoverse_tpu_torch.data.native_tokenizer import NativeCLIPTokenizer
+
+    svc = _service(ws[1], "--int8_conditioning", "--native_tokenizer")
+    assert isinstance(svc.tokenizer, NativeCLIPTokenizer)
+    assert svc.models.text_encoder.config.int8_dense and svc.models.vision_encoder.config.int8_dense
+    served = _Served(svc, HTTPServer)
+    try:
+        resp = served.post(dict(base, num_samples=2, seed=4))
+    finally:
+        served.server.shutdown()
+    assert len(resp["images_b64"]) == 2 and pixels(resp, 1).shape == (32, 32, 3)
+    plain = _service(ws[1])
+    ex = svc._prepare(dict(base, seed=4))[0]
+    _assert_same_example(ex, plain._prepare(dict(base, seed=4))[0])  # the native ids are the Python ones
 
 
 def test_entry_points_default_to_the_card(monkeypatch):

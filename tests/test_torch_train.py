@@ -264,7 +264,7 @@ def test_face_preprocess_resize_matches_jax():
     # 512 -> 128 bilinear without antialias, the training call's resize
     x = np.random.RandomState(3).rand(2, 512, 512, 3).astype(np.float32) * 2 - 1
     want = np.asarray(jax_face_preprocess(jnp.asarray(x), "arcface", normalize=False, size=128))
-    got = face_preprocess(T(x), normalize=False, size=128).numpy()
+    got = face_preprocess(T(x), "arcface", normalize=False, size=128).numpy()
     assert got.shape == (2, 128, 128, 1)
     np.testing.assert_allclose(got, want, rtol=1e-4, atol=1e-5)
 

@@ -321,7 +321,9 @@ def test_host_batch_matches_the_jax_cli(fixture_dirs, fuse):
     (["--fsdp"], "--fsdp is not ported"),
     (["--tensor_parallel", "2"], "--tensor_parallel 2 is not ported"),
     (["--shard_optimizer_state"], "--shard_optimizer_state is not ported"),
-    (["--face_loss", "facenet"], "--face_loss facenet is not ported"),
+    # --face_loss facenet runs (test_facenet_face_loss_runs); this case
+    # asserted its refusal and now holds two refused flags together
+    (["--fsdp", "--shard_optimizer_state"], "--fsdp, --shard_optimizer_state is not ported"),
     (["--push_to_hub"], "--push_to_hub needs the network"),
     (["--mixed_precision", "fp16"], "fp16 is not supported"),
 ])
@@ -329,6 +331,33 @@ def test_refused_flags_exit_with_their_message(fixture_dirs, tmp_path, flags, me
     with pytest.raises(SystemExit, match=message):
         ttrain.main(_argv(fixture_dirs, tmp_path / "out", *flags))
     assert not os.path.exists(tmp_path / "out")  # refused before anything runs
+
+
+def test_facenet_face_loss_runs(fixture_dirs, tmp_path):
+    """--face_loss facenet: the random FaceNet in the face branch and in the
+    sample grid's face_similarity row."""
+    from photoverse_tpu_torch.models import face_loss
+    from photoverse_tpu_torch.models.facenet import InceptionResnetV1
+
+    built = []
+    real = face_loss.load_face_loss
+
+    def spy(*a, **kw):
+        built.append(real(*a, **kw))
+        return built[-1]
+
+    out = tmp_path / "facenet"
+    with mock.patch.object(face_loss, "load_face_loss", spy):
+        _, _, step = ttrain.main(_argv(fixture_dirs, out, "--max_train_steps", "1", "--face_loss", "facenet",
+                                       "--allow_random_face_model", "--samples_save_steps", "1",
+                                       "--denoise_timesteps", "2", "--checkpoint_format", "pt"))
+    assert step == 1 and len(built) == 1 and isinstance(built[0].model, InceptionResnetV1)
+    rows = _metrics(out)
+    steps = [r for r in rows if "loss_mle" in r]
+    assert [r["step"] for r in steps] == [1]
+    assert all(np.isfinite(r["loss_face"]) and r["loss_face"] != 0.0 for r in steps)
+    sim = [r for r in rows if "face_similarity" in r]
+    assert len(sim) == 1 and -1 <= sim[0]["face_similarity"] <= 1
 
 
 def test_entry_point_wants_the_card_unless_cpu(fixture_dirs, tmp_path):
