@@ -72,6 +72,18 @@ Phases (each one fails the run on error):
      micro-step as ArcFace's), (e) cli/eval_face_similarity.py --json on
      (b)'s images with random FaceNet, ArcFace and MTCNN files, on the card
      against --cpu, and MTCNN's boxes on the card against the CPU's.
+ 10. parallel: on the same directory, `python -m torch.distributed.run
+     --nproc_per_node 2` (a child process with a time limit; the two ranks
+     share the card, so the backend rule picks gloo) runs, in each rank,
+     cli.generate --fast under --sharding data, tensor and spatial (512px,
+     batch 2, 10 steps) and then cli.serve --sharding tensor. Each mode's
+     PNGs against the one-process run of the same CLI at the served-vs-solo
+     limits, exact launches per rank (data: kernels 1, 4, 6 as one process;
+     tensor / spatial: kernel 1 only, 10 per UNet evaluation), s/image per
+     mode beside one process, a planted fault per mode that must read above
+     the limit; the service answers two requests over HTTP as a one-process
+     service does, and SIGTERM at rank 0 stops every rank with exit 0. The
+     kernel phase holds kernel 1 at the shapes a rank gives it there.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON summary (`launches` from the 50-step generation or
 the training micro-steps, `serve_launches` from the serve phase's first
@@ -84,6 +96,7 @@ import contextlib
 import dataclasses
 import json
 import os
+import re
 import subprocess
 import sys
 import tempfile
@@ -353,6 +366,10 @@ def phase_kernels(source_tpu: dict):
         # the server's bucket 4 at guidance 6 (UNet batch 8); batch 1 (the
         # samplers phase) follows the ragged cases below
         (8, 4096, 4096, 8, 40), (8, 1024, 1024, 8, 80),
+        # one rank's share under --sharding at 2 ranks (the parallel phase):
+        # tensor, 4 local heads; spatial, the local query rows against the
+        # gathered keys
+        (2, 4096, 4096, 4, 40), (2, 1024, 1024, 4, 80), (2, 2048, 4096, 8, 40), (2, 512, 1024, 8, 80),
     ]
     for B, Sq, Skv, H, d in flash_cases:
         q = (0.3 * torch.randn(B, Sq, H, d, generator=gen, device=dev)).bfloat16()
@@ -1974,6 +1991,364 @@ def phase_identity(smi: str, root: str, data: str):
     return ok
 
 
+# parallel phase: the generate CLI under --sharding on two ranks of one card
+# against its one-process run, in uint8 steps, held at the serve phase's
+# served-vs-solo limits (SERVE_SAME_U8, SERVE_SAME_MEAN_U8): two ranks sum
+# their partial products and moments in another order, which in bf16 acts
+# as another batch size's algorithms do
+PARALLEL_MODES = ("data", "tensor", "spatial")
+# the faults planted per mode in another run on the same ranks; each must
+# read above the limit. The images cannot hold the spatial K/V gather (on
+# random weights self-attention on half of the keys reads max 8, mean 0.86
+# on an H100; PERF.md): the sharded flash wrapper is held on one layer's
+# real inputs instead (`_hold_wrapper`)
+PARALLEL_FAULTS = {
+    "data": ("rank 1 takes rank 0's noise rows",),
+    "tensor": ("the first feed-forward output layer skips its all_reduce",),
+    "spatial": ("conv_in's halo rows zeroed",),
+}
+# seconds the two ranks may take for the three generations and the service
+PARALLEL_TIMEOUT_S = 540
+
+
+def _u8(path: str) -> np.ndarray:
+    from PIL import Image
+
+    return np.asarray(Image.open(path), np.int32)
+
+
+def _u8_diff(a, b):
+    """(largest, mean) absolute difference of two uint8 image lists."""
+    d = [np.abs(x - y) for x, y in zip(a, b)]
+    return max(int(x.max()) for x in d), float(np.mean([x.mean() for x in d]))
+
+
+def _plant(fault: str, models, spatial):
+    """Plant one parallel-phase fault on this rank's models; returns the
+    function that removes it (the data fault lives in the draws)."""
+    import copy
+    import types
+
+    import torch
+
+    from photoverse_tpu_torch.models.unet import _FeedForward
+    from photoverse_tpu_torch.parallel.tp import RowParallelLinear
+
+    if fault.endswith("skips its all_reduce"):
+        layer = next(m for m in models.unet.modules() if isinstance(m, _FeedForward)).net[2]
+        assert isinstance(layer, RowParallelLinear)
+        comm = layer.comm
+        layer.comm = types.SimpleNamespace(all_reduce=lambda t: t)
+        return lambda: setattr(layer, "comm", comm)
+    if fault.startswith("conv_in"):
+        conv = models.unet.conv_in
+        zero = copy.copy(spatial)
+        zero.halos = lambda x: (torch.zeros_like(x[:, :, :1]),) * 2
+        conv.spatial = zero
+        return lambda: setattr(conv, "spatial", spatial)
+    return lambda: None
+
+
+def _hold_wrapper(comm, q, k, v) -> dict:
+    """sharded_flash(comm, "spatial") on this rank's rows of one real
+    self-attention layer (q, k, v as the layer gave them to the wrapper),
+    the outputs gathered, against the plain version on the whole sequence
+    (f32) at the flash limit; and the planted fault, the kernel on the
+    local K/V only (no gather), against the same."""
+    import torch
+
+    from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa, flash_sdpa_plain
+    from photoverse_tpu_torch.parallel.flash import sharded_flash
+
+    with torch.no_grad():
+        whole = [comm.all_gather(t, 1) for t in (q, k, v)]
+        want = flash_sdpa_plain(*(t.float() for t in whole))
+        got = comm.all_gather(sharded_flash(comm, "spatial")(q, k, v), 1)
+        local = comm.all_gather(flash_sdpa(q, k, v), 1)
+        kernel = flash_sdpa(*whole)
+
+    def err(t):
+        return (t.float() - want).abs().max().item()
+
+    return dict(local=list(q.shape), whole=list(whole[1].shape), err=err(got), fault_err=err(local),
+                whole_kernel_err=err(kernel), tol=FLASH_RTOL * want.abs().max().item())
+
+
+def _rank_generate(job: dict) -> dict:
+    """cli.generate's main on this rank, its run_inference_sharded watched:
+    the launches of the first run, the time of it and of a second run, and
+    each planted fault's run (rank 0 writes those images)."""
+    import torch
+
+    from photoverse_tpu_torch.cli import generate as gen
+    from photoverse_tpu_torch.engine import inference as inf
+    from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils.image import denormalize, to_pil
+
+    real = inf.run_inference_sharded
+    rec = {}
+
+    def spy(models, solver, example, generator, mesh, spatial=None, **kw):
+        B = len(example["text_input_ids"])
+
+        def fresh():
+            return torch.Generator(device=generator.device).manual_seed(generator.initial_seed())
+
+        cfg, captured = models.unet.config, []
+        if job.get("wrapper"):  # the first flash self-attention's inputs
+
+            def capture(q, k, v):
+                if not captured:
+                    captured.append((q, k, v))
+                return cfg.flash_fn(q, k, v)
+
+            models.unet.set_config(dataclasses.replace(cfg, flash_fn=capture))
+        seconds = []
+        for i in range(2):  # the first run warms this rank up
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            images = real(models, solver, example, fresh(), mesh, spatial, **kw)
+            torch.cuda.synchronize()
+            seconds.append(time.perf_counter() - t0)
+            if i == 0:
+                rec["counts"] = dict(_build.launch_counts)
+                models.unet.set_config(cfg)
+        if captured:
+            rec["wrapper"] = _hold_wrapper(mesh.model_comm, *captured.pop())
+        rec.update(seconds=seconds, images=B, backend=mesh.backend, mesh=[mesh.dp, mesh.mp])
+        for j, fault in enumerate(job["faults"]):
+            draws = None
+            if fault.startswith("rank 1 takes"):
+                draws = inf.draw_noise(models, solver, fresh(), B, kw["latent_size"], kw["from_noised_image"])
+                per = B // mesh.dp
+                draws["initial_noise"][per:2 * per] = draws["initial_noise"][:per]
+            undo = _plant(fault, models, spatial)
+            try:
+                bad = real(models, solver, example, fresh(), mesh, spatial, draws=draws, **kw)
+            finally:
+                undo()
+            if mesh.rank == 0:
+                d = os.path.join(job["out"], f"fault{j}")
+                os.makedirs(d, exist_ok=True)
+                for idx, img in enumerate(bad.float().cpu().numpy()):
+                    to_pil(denormalize(img)).save(os.path.join(d, f"{idx}.png"))
+        return images
+
+    t0 = time.perf_counter()
+    with mock.patch.object(inf, "run_inference_sharded", spy):
+        gen.main(job["argv"])
+    rec["main_seconds"] = time.perf_counter() - t0
+    return rec
+
+
+def parallel_rank(jobs_path: str) -> int:
+    """One rank of the parallel phase (started by torch.distributed.run):
+    each job of the file in turn, cli.generate under --sharding in each
+    mode, then cli.serve; what each generation saw goes to rank{r}.json."""
+    import torch
+    import torch.distributed as dist
+
+    from photoverse_tpu_torch.cli import serve
+    from photoverse_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the one-process run (phase_device)
+    torch.backends.cudnn.allow_tf32 = False
+    with open(jobs_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    with open(os.path.join(spec["dir"], f"rank{rank}.pid"), "w") as f:
+        f.write(str(os.getpid()))
+    results = {}
+    # the jobs share this process's group (the CLIs' close_mesh waits for the
+    # end): re-opening it from the launcher's store would meet the keys the
+    # last group left there
+    with mock.patch.object(pm, "close_mesh", lambda mesh: None):
+        for job in spec["jobs"]:
+            if job["cli"] == "generate":
+                results[job["mode"]] = _rank_generate(job)
+            else:
+                serve.main(job["argv"])
+                results["serve"] = "returned"
+            with open(os.path.join(spec["dir"], f"rank{rank}.json"), "w") as f:
+                json.dump(results, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel(smi: str, root: str, data: str):
+    """cli.generate --sharding data|tensor|spatial and cli.serve --sharding
+    tensor on two ranks that share the card (`python -m
+    torch.distributed.run --nproc_per_node 2`, gloo), against the
+    one-process runs."""
+    import base64
+    import io
+    import signal
+    import urllib.request
+
+    import torch
+    from PIL import Image
+
+    from photoverse_tpu_torch.cli import generate as gen
+    from photoverse_tpu_torch.cli import serve
+    from photoverse_tpu_torch.data.tokenizer import CLIPTokenizer
+    from photoverse_tpu_torch.engine import inference as inf
+    from photoverse_tpu_torch.ops import _build
+
+    ok = True
+
+    def check(good, what):
+        nonlocal ok
+        ok &= bool(good)
+        log(f"parallel: {what} {'OK' if good else 'FAIL'}")
+
+    def within(diff):
+        return diff[0] <= SERVE_SAME_U8 and diff[1] <= SERVE_SAME_MEAN_U8
+
+    photo = os.path.join(data, "images", "0.jpg")
+    flags = ["--model_path", root, "--checkpoint_path", "", "--input_image_path", photo, "--num_timesteps", "10",
+             "--resolution", "512", "--num_of_samples", "2", "--seed", "0", "--fast"]
+    serve_flags = ["--model_path", root, "--fast", "--resolution", "512", "--port", "0"]
+    with open(photo, "rb") as f:
+        body = {"image_b64": base64.b64encode(f.read()).decode(), "prompt": "a photo of a {}", "steps": 10,
+                "guidance_scale": 1.0}
+    bodies = [dict(body, num_samples=2, seed=3), dict(body, seed=4, scheduler="euler_a")]
+    with tempfile.TemporaryDirectory() as tmp:
+        # the one-process runs, in this process
+        seen = {}
+        real = inf.run_inference
+
+        def spy(models, *a, **kw):
+            torch.cuda.synchronize()
+            _build.reset_launch_counts()
+            t0 = time.perf_counter()
+            imgs = real(models, *a, **kw)
+            torch.cuda.synchronize()
+            seen.update(counts=dict(_build.launch_counts), seconds=time.perf_counter() - t0, models=models)
+            return imgs
+
+        t0 = time.perf_counter()
+        with mock.patch.object(inf, "run_inference", spy):
+            gen.main(flags + ["--results_dir", os.path.join(tmp, "one")])
+        one = [_u8(os.path.join(tmp, "one", f"generated_image{i}.png")) for i in range(2)]
+        check(seen["counts"] == _serving_counts(10),
+              f"one process: cli.generate --fast, 512px, batch 2, 10 steps: launches {seen['counts']}, "
+              f"{seen['seconds'] / 2:.4f} s/image, {time.perf_counter() - t0:.1f}s with the load ({smi})")
+        # the one-process service, on the models the CLI loaded with the
+        # same flags
+        svc = serve.PhotoVerseService(serve.build_parser().parse_args(serve_flags),
+                                      models=(CLIPTokenizer.from_pretrained(root), seen.pop("models")))
+        solo = [svc.generate(b) for b in bodies]
+        del svc
+        torch.cuda.empty_cache()
+
+        # the ranks: the three generations, then the service
+        jobs = [dict(cli="generate", mode=m, faults=PARALLEL_FAULTS[m], out=os.path.join(tmp, m),
+                     wrapper=m == "spatial", argv=flags + ["--results_dir", os.path.join(tmp, m), "--sharding", m])
+                for m in PARALLEL_MODES]
+        jobs.append(dict(cli="serve", argv=serve_flags + ["--sharding", "tensor"]))
+        jobs_path = os.path.join(tmp, "jobs.json")
+        with open(jobs_path, "w") as f:
+            json.dump({"dir": tmp, "jobs": jobs}, f)
+        log_path = os.path.join(tmp, "ranks.log")
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        with open(log_path, "w") as out:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                 os.path.abspath(__file__), "--parallel-rank", jobs_path],
+                cwd=here, stdout=out, stderr=subprocess.STDOUT, start_new_session=True,
+                env=dict(os.environ, OMP_NUM_THREADS="4"))  # the host's 8 cores over two ranks
+        deadline = time.monotonic() + PARALLEL_TIMEOUT_S
+        served, port = [], None
+        try:
+            while port is None and proc.poll() is None and time.monotonic() < deadline:
+                with open(log_path) as f:
+                    found = re.findall(r"listening on http://127\.0\.0\.1:(\d+)", f.read())
+                port = found[0] if found else None
+                time.sleep(0.5)
+            if port is not None:
+                for b in bodies:
+                    req = urllib.request.Request(f"http://127.0.0.1:{port}/generate", data=json.dumps(b).encode(),
+                                                 headers={"Content-Type": "application/json"})
+                    served.append(json.loads(urllib.request.urlopen(req, timeout=SERVE_TIMEOUT_S).read()))
+                with open(os.path.join(tmp, "rank0.pid")) as f:
+                    os.kill(int(f.read()), signal.SIGTERM)  # rank 0 drains and stops rank 1
+            proc.wait(timeout=max(deadline - time.monotonic(), 1))
+        except Exception as e:  # noqa: BLE001 - reported, then the phase fails
+            check(False, f"the ranks' run: {e!r}")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.perf_counter() - t0
+        with open(log_path) as f:
+            ranks_log = f.read()
+        pids = []
+        for r in range(2):
+            with contextlib.suppress(OSError, ValueError), open(os.path.join(tmp, f"rank{r}.pid")) as f:
+                pids.append(int(f.read()))
+        alive = [p for p in pids if os.path.exists(f"/proc/{p}")]
+        check(proc.returncode == 0 and len(pids) == 2 and not alive,
+              f"torch.distributed.run --nproc_per_node 2: exit {proc.returncode} after {wall:.1f}s, ranks "
+              f"{pids} running after it: {alive}")
+        if proc.returncode != 0:
+            log(ranks_log[-6000:])
+        backend = re.findall(r"\[parallel\] backend .*", ranks_log)
+        log(f"parallel: {backend[0] if backend else 'no backend line'}")
+        check(any("backend gloo" in b for b in backend), "two ranks on one card chose gloo")
+        ranks = []
+        for r in range(2):
+            with contextlib.suppress(OSError, ValueError), open(os.path.join(tmp, f"rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        if len(ranks) != 2 or any(set(rk) != {*PARALLEL_MODES, "serve"} for rk in ranks):
+            check(False, f"every rank ran every job: {[sorted(rk) for rk in ranks]}")
+            return ok
+        log("parallel: two ranks share one H100's SMs and gloo moves every collective through the host, so "
+            "these times are the cost of the collectives, not a multi-GPU speed-up")
+        for m in PARALLEL_MODES:
+            got = [_u8(os.path.join(tmp, m, f"generated_image{i}.png")) for i in range(2)]
+            diff = _u8_diff(got, one)
+            want = _serving_counts(10) if m == "data" else {"flash_sdpa": 100}
+            counts = [rk[m]["counts"] for rk in ranks]
+            secs = [rk[m]["seconds"] for rk in ranks]
+            check(within(diff) and all(c == want for c in counts),
+                  f"--sharding {m} (mesh {ranks[0][m]['mesh']}): images against one process max {diff[0]} mean "
+                  f"{diff[1]:.4f} of 255 (limits {SERVE_SAME_U8}, {SERVE_SAME_MEAN_U8}); launches per rank "
+                  f"{counts} (want {want}); s/image first / second run per rank "
+                  f"{[[round(s / 2, 4) for s in x] for x in secs]} against {seen['seconds'] / 2:.4f} in one "
+                  f"process; the CLI's main {[round(rk[m]['main_seconds'], 1) for rk in ranks]} s per rank "
+                  f"({smi})")
+            for j, fault in enumerate(PARALLEL_FAULTS[m]):
+                bad = [_u8(os.path.join(tmp, m, f"fault{j}", f"{i}.png")) for i in range(2)]
+                fd = _u8_diff(bad, one)
+                check(not within(fd), f"planted fault under --sharding {m}, {fault}: max {fd[0]} mean "
+                                      f"{fd[1]:.4f} of 255, {'above' if not within(fd) else 'NOT above'} the limit")
+            if m == "spatial":
+                w = [rk[m]["wrapper"] for rk in ranks]
+                check(all(x["err"] <= x["tol"] < x["fault_err"] for x in w),
+                      f"sharded_flash(spatial) on each rank's rows of the first self-attention layer, local "
+                      f"{w[0]['local']} against K/V {w[0]['whole']}, gathered, against the plain version on the "
+                      f"whole sequence: max |err| {[x['err'] for x in w]} (the kernel on the whole sequence "
+                      f"{[x['whole_kernel_err'] for x in w]}), limit {[x['tol'] for x in w]}; planted fault, the "
+                      f"local K/V only: {[x['fault_err'] for x in w]}, above the limit")
+
+        def pixels(resp):
+            return [np.asarray(Image.open(io.BytesIO(base64.b64decode(b))), np.int32) for b in resp["images_b64"]]
+
+        for b, got, want in zip(bodies, served, solo):
+            diff = _u8_diff(pixels(got), pixels(want))
+            check(within(diff) and len(got["images_b64"]) == len(want["images_b64"]),
+                  f"cli.serve --sharding tensor over HTTP, {b.get('scheduler', 'dpm')} x{b.get('num_samples', 1)} "
+                  f"seed {b['seed']}: against a one-process service max {diff[0]} mean {diff[1]:.4f} of 255; "
+                  f"latency {got['latency_s']} s (one process {want['latency_s']} s)")
+        check(len(served) == len(bodies) and "[serve] rank 1: stopped by rank 0" in ranks_log
+              and "[serve] drained; exiting" in ranks_log,
+              f"cli.serve --sharding tensor: {len(served)} of {len(bodies)} requests answered; SIGTERM at rank 0 "
+              f"drained it and stopped rank 1")
+    return ok
+
+
 # file:line of each TPU kernel's pallas_call in the JAX package
 TPU_KERNELS = {
     "flash_sdpa": "photoverse_tpu/ops/flash_sdpa.py:154",
@@ -2002,12 +2377,15 @@ def main() -> int:
         root, data, tokenizer = write_user_files(tmp)
         cli_ok = phase_train_cli(smi, root, data, tokenizer)
         identity_ok = phase_identity(smi, root, data)
+        torch.cuda.empty_cache()  # the ranks of the next phase share this card
+        parallel_ok = phase_parallel(smi, root, data)
     # each kernel's launches from the run of the path it lies on: the
     # 50-step generation, or the four training micro-steps; the serving
     # kernels also from the server's first coalesced batch
     launches = {n: results["g1"]["counts"].get(n, 0) if n in SERVING_KERNELS else train_launches.get(n, 0)
                 for n in TPU_KERNELS}
     ok = (all(r["ok"] for r in rows) and pipe_ok and samplers_ok and serve_ok and train_ok and cli_ok and identity_ok
+          and parallel_ok
           and all(v > 0 for v in launches.values())
           and all(serve_launches.get(n, 0) > 0 for n in SERVING_KERNELS))
     summary = {"kernels": []}
@@ -2034,4 +2412,6 @@ def main() -> int:
 
 
 if __name__ == "__main__":
+    if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of the parallel phase
+        sys.exit(parallel_rank(sys.argv[2]))
     sys.exit(main())

@@ -1,19 +1,30 @@
 """Inference CLI of the PyTorch port: the flag surface of
-photoverse_tpu/cli/generate.py, on one GPU (or the CPU with --cpu).
+photoverse_tpu/cli/generate.py, on one GPU (or the CPU with --cpu), or on
+several ranks under --sharding.
 
 Usage:
   python -m photoverse_tpu_torch.cli.generate --model_path /path/to/sd15 \\
       --checkpoint_path photoverse.pt --input_image_path face.jpg \\
       --text "a photo of a {}" --num_timesteps 25 --guidance_scale 6
 
+  python -m torch.distributed.run --nproc_per_node N \\
+      -m photoverse_tpu_torch.cli.generate ... --sharding data|tensor|spatial [--model_parallel M]
+
+--sharding (parallel/): `data` (or --data_parallel) splits the batch over
+the ranks; `tensor` (Megatron heads / feed-forward sharding of the UNet)
+and `spatial` (the latent rows split) shard one model replica over
+--model_parallel ranks (all of them by default), the other ranks
+splitting the batch, on a (data, model) mesh. The draws are the one-process run's, so the images
+are the one-process run's up to the rounding of the sharded arithmetic.
+Under tensor and spatial the fused block tail and the VAE's stream kernel
+are off and the UNet's flash kernel runs through the sharded wrapper, the
+JAX CLI's configuration. At one rank the flag prints the JAX CLI's warning
+and the run is the one-process run. Rank 0 writes the PNGs.
+
 `--int8_conditioning` puts the frozen CLIP encoders' layers on W8A8 int8
 (ops/quant.py). Its activation scale is one per tensor, so a row's
 conditioning depends on the other rows of its encoder call, as in the JAX
 package.
-
-Flags whose code the port does not have yet (`--sharding` other than none,
-`--data_parallel`, `--model_parallel`) are parsed and refused with a
-message; none is silently ignored.
 """
 
 from __future__ import annotations
@@ -22,9 +33,6 @@ import argparse
 import os
 
 import numpy as np
-
-UNPORTED = ("is not ported to photoverse_tpu_torch yet (ROADMAP.md, Queue 1: "
-            "`parallel/` via torch.distributed); run without it")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -69,14 +77,20 @@ def build_parser() -> argparse.ArgumentParser:
                         "CLIP encoders (inference-only); the activation scale "
                         "is per tensor, so rows encoded together affect each other")
     p.add_argument("--data_parallel", action="store_true",
-                   help="Alias for --sharding data; not ported yet (refused)")
+                   help="Alias for --sharding data")
     p.add_argument("--sharding", type=str, default="none",
                    choices=["none", "data", "spatial", "tensor"],
-                   help="Multi-GPU execution mode; only `none` is ported, "
-                        "the others are refused")
+                   help="Multi-GPU execution over the ranks of "
+                        "`python -m torch.distributed.run`: data = batch "
+                        "split; spatial = latent rows split (halo-exchanged "
+                        "convs, gathered K/V); tensor = Megatron heads/FFN "
+                        "UNet sharding. With --fast the flash kernel runs "
+                        "on each rank's share; the fused block tail stays "
+                        "off under spatial|tensor")
     p.add_argument("--model_parallel", type=int, default=0,
-                   help="Model-axis size for --sharding spatial|tensor; not "
-                        "ported yet (refused when non-zero)")
+                   help="Model-axis size for --sharding spatial|tensor "
+                        "(0: every rank); the other ranks split the batch "
+                        "(2-D data x model mesh)")
     p.add_argument("--scheduler", type=str, default="dpm",
                    choices=list(SCHEDULER_NAMES),
                    help="dpm: DPM-Solver++(2M); ddim: DDIM eta=0; euler / "
@@ -97,17 +111,40 @@ def build_parser() -> argparse.ArgumentParser:
     return p
 
 
-def refuse_unported(args) -> None:
-    """Exit on a flag whose code the port lacks, naming the flag."""
-    asked = []
-    if getattr(args, "sharding", "none") != "none":
-        asked.append(f"--sharding {args.sharding}")
-    if getattr(args, "data_parallel", False):
-        asked.append("--data_parallel")
-    if getattr(args, "model_parallel", 0):
-        asked.append("--model_parallel")
-    if asked:
-        raise SystemExit(f"{', '.join(asked)} {UNPORTED}")
+def sharding_plan(mode: str, model_path: str, resolution: int, model_parallel: int = 0,
+                  serving: bool = False):
+    """(mode, dp, mp) for --sharding `mode` at the launcher's world size,
+    checked before the process group opens: at one rank the JAX CLI's
+    warning and mode "none"; several ranks without a mode, a mesh that
+    does not fit the ranks, or a model the mode cannot split exit with
+    the reason (validate_tp / validate_sp's message)."""
+    from photoverse_tpu_torch.parallel.mesh import mesh_shape, world_from_env
+
+    _, world, _, _ = world_from_env()
+    if mode != "none" and world == 1:
+        print(f"WARNING: --sharding {mode} requires >1 device (found 1); "
+              f"{'serving' if serving else 'running'} single-device", flush=True)
+        return "none", 1, 1
+    if mode == "none":
+        if world > 1:
+            raise SystemExit(f"launched on {world} ranks without --sharding; pass --sharding "
+                             f"{'tensor|spatial' if serving else 'data|tensor|spatial'}")
+        return "none", 1, 1
+    try:
+        dp, mp = mesh_shape(mode, world, model_parallel)
+        if mode in ("tensor", "spatial"):
+            from photoverse_tpu_torch.models.assembly import model_configs
+            from photoverse_tpu_torch.parallel.sp import validate_sp
+            from photoverse_tpu_torch.parallel.tp import validate_tp
+
+            unet_cfg, vae_cfg = model_configs(model_path)
+            if mode == "tensor":
+                validate_tp(unet_cfg, mp)
+            else:
+                validate_sp(unet_cfg, resolution // 2 ** (len(vae_cfg.block_out_channels) - 1), mp)
+    except ValueError as e:
+        raise SystemExit(str(e)) from e
+    return mode, dp, mp
 
 
 def pick_device(cpu: bool) -> str:
@@ -182,22 +219,41 @@ def main(argv=None):
             "multistep coefficients assume it; pick euler/dpm/unipc/heun/"
             "lms/dpm_2s_a variants for Karras sigmas)"
         )
-    refuse_unported(args)
     ckpt = args.checkpoint_path or None
     if ckpt and not os.path.exists(ckpt):
         raise SystemExit(f"checkpoint not found: {ckpt}")
+    mode = "data" if args.data_parallel and args.sharding == "none" else args.sharding
+    mode, dp, mp = sharding_plan(mode, args.model_path, args.resolution, args.model_parallel)
+    if mode == "none":
+        return _generate(args, ckpt, pick_device(args.cpu))
 
+    from photoverse_tpu_torch.parallel.mesh import close_mesh, open_mesh
+
+    mesh = open_mesh(dp, mp, cpu=args.cpu)
+    try:
+        return _generate(args, ckpt, mesh.device, mesh, mode)
+    finally:
+        close_mesh(mesh)
+
+
+def _generate(args, ckpt, device, mesh=None, mode="none"):
     import torch
 
     from photoverse_tpu_torch.core.schedulers import make_solver
-    from photoverse_tpu_torch.engine.inference import run_inference
+    from photoverse_tpu_torch.engine.inference import run_inference, run_inference_sharded
     from photoverse_tpu_torch.models.assembly import cast_params, load_models
+    from photoverse_tpu_torch.parallel import shard_models
     from photoverse_tpu_torch.utils.image import denormalize, to_pil
 
-    device = pick_device(args.cpu)
+    device = torch.device(device)
     # the hand-written kernels exist on the card only; --fast on the CPU
     # keeps the plain attention and the unfused tail
-    on_card = device == "cuda"
+    on_card = device.type == "cuda"
+    # under tensor / spatial the fused tail and the VAE's stream kernel stay
+    # off and the UNet's flash kernel comes back through the sharded
+    # wrapper (shard_models): the JAX CLI's configuration, not a fallback
+    model_sharded = mode in ("tensor", "spatial")
+    kernels = args.fast and on_card
     dtype = torch.bfloat16 if (args.bf16 or args.fast) else torch.float32
     tokenizer, models, _ = load_models(
         args.model_path,
@@ -205,15 +261,16 @@ def main(argv=None):
         photoverse_path=ckpt,
         image_encoder_layers_idx=tuple(args.encoder_layers_idx),
         dtype=dtype,
-        use_flash_attention=args.fast and on_card,
+        use_flash_attention=kernels and not model_sharded,
         fast_attention_scores=args.fast,
         fast_norms=args.fast,
-        fused_blocks=args.fast and on_card,
+        fused_blocks=kernels and not model_sharded,
         int8_conditioning=args.int8_conditioning,
         device=device,
     )
     if args.bf16_params:
         cast_params(models, torch.bfloat16)
+    spatial = shard_models(models, mesh, mode, flash=kernels) if mesh is not None else None
     solver = make_solver(models.schedule, args.scheduler, args.num_timesteps,
                          use_karras_sigmas=args.karras_sigmas)
 
@@ -237,15 +294,17 @@ def main(argv=None):
         ip_mask = np.repeat(np.asarray(m, np.float32)[None] / 255.0, B, axis=0)
 
     seed = args.seed if args.seed is not None else int.from_bytes(os.urandom(4), "little")
-    images = run_inference(
-        models, solver, example, torch.Generator(device=device).manual_seed(seed),
-        guidance_scale=args.guidance_scale,
-        token_index=0,
-        latent_size=latent_size,
-        from_noised_image=args.from_noised_image,
-        uncond_input_ids=uncond_ids,
-        ip_mask=ip_mask,
-    )
+    if mesh is not None:  # one seed for every rank: rank 0's
+        seed = int(mesh.world_comm.broadcast(torch.tensor([seed], dtype=torch.int64))[0])
+    kw = dict(guidance_scale=args.guidance_scale, token_index=0, latent_size=latent_size,
+              from_noised_image=args.from_noised_image, uncond_input_ids=uncond_ids, ip_mask=ip_mask)
+    generator = torch.Generator(device=device).manual_seed(seed)
+    if mesh is None:
+        images = run_inference(models, solver, example, generator, **kw)
+    else:
+        images = run_inference_sharded(models, solver, example, generator, mesh, spatial, **kw)
+        if mesh.rank != 0:
+            return
 
     os.makedirs(args.results_dir, exist_ok=True)
     images = images.float().cpu().numpy()

@@ -1,6 +1,6 @@
 """Serving CLI of the PyTorch port: keep the models warm behind HTTP.
-Counterpart of photoverse_tpu/cli/serve.py on one GPU; stdlib-only
-(http.server).
+Counterpart of photoverse_tpu/cli/serve.py on one GPU, or on several ranks
+under --sharding; stdlib-only (http.server).
 
 Two execution modes:
 
@@ -61,12 +61,26 @@ Device use, both modes:
 built bundle instead of loading a directory, and `submit(example, n, seed,
 key)` takes a prepared numpy example and returns uint8 arrays, so a caller
 without files, Pillow or sockets can drive the same queue.
+
+--sharding tensor|spatial serves every request on all the ranks of
+`python -m torch.distributed.run --nproc_per_node N -m
+photoverse_tpu_torch.cli.serve ...` (a 1 x N mesh, as the JAX server's):
+rank 0 runs HTTP, the queue, the worker and the completion threads; before
+each batch it enqueues, it broadcasts the batch to the other ranks (its
+pipeline key, its example tensors, its noise and its row noise), which run
+a follower loop (`follow`) and enter the same pipeline, so the sharded
+collectives pair up. Shutdown (SIGTERM or SIGINT at rank 0, then the
+drain) broadcasts a stop and every rank returns. The followers ignore
+SIGTERM and SIGINT: the launcher signals every rank, and a follower ends on
+rank 0's stop, after the batch in flight. At one rank the flag prints the
+JAX server's warning and serves single-device.
 """
 
 from __future__ import annotations
 
 import argparse
 import base64
+import contextlib
 import io
 import json
 import os
@@ -116,8 +130,12 @@ def build_parser() -> argparse.ArgumentParser:
                    help="run the default configuration at startup")
     p.add_argument("--sharding", type=str, default="none",
                    choices=["none", "spatial", "tensor"],
-                   help="Serve one request across several GPUs; only `none` "
-                        "is ported, the others are refused")
+                   help="Serve every request across all the ranks of "
+                        "`python -m torch.distributed.run`: spatial = latent "
+                        "rows split (halo-exchanged convs, gathered K/V); "
+                        "tensor = Megatron heads/FFN UNet sharding. With "
+                        "--fast the flash kernel runs on each rank's share; "
+                        "the fused block tail stays off")
     p.add_argument("--cpu", action="store_true",
                    help="Run on the CPU (the default is the GPU)")
     p.add_argument("--native_tokenizer", action="store_true",
@@ -156,10 +174,11 @@ class _Pipeline:
     solver with its step tables on the device, and the call that enqueues a
     whole generation and packs the images to uint8 on the device."""
 
-    def __init__(self, service, solver, guidance):
+    def __init__(self, service, solver, guidance, key):
         self.service = service
         self.solver = solver
         self.guidance = guidance
+        self.key = key  # (steps, guidance, scheduler)
         solver.step_inputs(service.device)  # uploaded once, cached in the solver
 
     def __call__(self, example, noise, ancestral_noise):
@@ -172,7 +191,7 @@ class _Pipeline:
             img = run_inference(
                 s.models, self.solver, example,
                 guidance_scale=self.guidance, token_index=0, latent_size=s.latent_size,
-                initial_noise=noise, ancestral_noise=ancestral_noise,
+                initial_noise=noise, ancestral_noise=ancestral_noise, spatial=s.spatial,
             )
             u = (img.float() / 2.0 + 0.5).clamp(0.0, 1.0)
             return (u * 255.0).round().to(torch.uint8)
@@ -191,36 +210,57 @@ class PhotoVerseService:
     # what the pipeline reads on the device: it starts from pure noise, so
     # `pixel_values` is batched with the rest but never uploaded
     _DEVICE_KEYS = _EXAMPLE_KEYS[1:]
+    # the dtypes `_prepare` gives them, which the followers receive
+    _INT_KEYS = ("text_input_ids", "concept_placeholder_idx", "negative_text_input_ids")
 
     def __init__(self, args, models=None):
         import torch
 
-        from photoverse_tpu_torch.cli.generate import pick_device, refuse_unported
+        from photoverse_tpu_torch.cli.generate import pick_device, sharding_plan
 
-        refuse_unported(args)
         self.args = args
-        self.device = torch.device(pick_device(args.cpu))
+        mode, _, mp = sharding_plan(args.sharding, args.model_path, args.resolution, serving=True)
+        self.mesh = self.spatial = None
+        if mode != "none":
+            from photoverse_tpu_torch.parallel.mesh import open_mesh
+
+            if models is not None:
+                raise ValueError("--sharding builds each rank's models itself: pass no models=")
+            self.mesh = open_mesh(1, mp, cpu=args.cpu)
+            self.device = self.mesh.device
+        else:
+            self.device = torch.device(pick_device(args.cpu))
         on_card = self.device.type == "cuda"
         if on_card:  # with its index, as torch.cuda.set_device wants it
             self.device = torch.device("cuda", torch.cuda.current_device())
+        # one batch's broadcast and run, or the stop, at a time (rank 0)
+        self._lead_lock = threading.Lock()
         if models is None:
             from photoverse_tpu_torch.models.assembly import cast_params, load_models
+            from photoverse_tpu_torch.parallel import shard_models
 
+            # under tensor / spatial the fused tail and the VAE's stream
+            # kernel stay off and the UNet's flash kernel comes back through
+            # the sharded wrapper: the JAX server's configuration
+            kernels = args.fast and on_card
+            model_sharded = mode != "none"
             self.tokenizer, self.models, _ = load_models(
                 args.model_path,
                 extra_num_tokens=args.extra_num_tokens,
                 photoverse_path=args.checkpoint_path or None,
                 image_encoder_layers_idx=tuple(args.encoder_layers_idx),
                 dtype=torch.bfloat16 if args.fast else torch.float32,
-                use_flash_attention=args.fast and on_card,
+                use_flash_attention=kernels and not model_sharded,
                 fast_attention_scores=args.fast,
                 fast_norms=args.fast,
-                fused_blocks=args.fast and on_card,
+                fused_blocks=kernels and not model_sharded,
                 int8_conditioning=args.int8_conditioning,
                 device=self.device,
             )
             if args.bf16_params:
                 cast_params(self.models, torch.bfloat16)
+            if self.mesh is not None:
+                self.spatial = shard_models(self.models, self.mesh, mode, flash=kernels)
         else:
             self.tokenizer, self.models = models
             if self.models.device.type != self.device.type:
@@ -314,7 +354,7 @@ class PhotoVerseService:
         with self._state_lock:
             pipe = self._pipelines.get(key)
         if pipe is None:
-            pipe = _Pipeline(self, make_solver(self.models.schedule, scheduler, steps), guidance)
+            pipe = _Pipeline(self, make_solver(self.models.schedule, scheduler, steps), guidance, key)
         with self._state_lock:
             pipe = self._pipelines.setdefault(key, pipe)
             if (batch, *key) not in self._shapes:
@@ -553,10 +593,17 @@ class PhotoVerseService:
         """Enqueue one batch and the copy of its uint8 images to the host;
         returns (host tensor, event or None). Nothing here waits for the
         device: on a GPU the host tensor is pinned and holds the images
-        once the event has passed."""
+        once the event has passed (under --sharding the collectives wait,
+        and the batch goes to the followers first)."""
         import torch
 
-        images = pipe(self._upload(example), noise, row_noise)
+        dev_example = self._upload(example)
+        if self.mesh is None:
+            images = pipe(dev_example, noise, row_noise)
+        else:
+            with self._lead_lock:
+                self._lead(pipe, dev_example, noise, row_noise)
+                images = pipe(dev_example, noise, row_noise)
         if self.device.type != "cuda":
             return images, None
         host = torch.empty(images.shape, dtype=images.dtype, pin_memory=True)
@@ -596,6 +643,69 @@ class PhotoVerseService:
         t0 = time.perf_counter()
         host, event = self._run(batch, noise, row_noise, pipe)
         return (group, rows, bucket, host, event, t0)
+
+    # ------------------------------------------------------------------
+    # --sharding: rank 0 leads, the other ranks follow
+
+    def _header(self, *values):
+        import torch
+
+        return torch.tensor(values or (0,) * 6, dtype=torch.float64)
+
+    def _lead(self, pipe: _Pipeline, example: dict, noise, row_noise) -> None:
+        """Send one batch to the followers: its header (go, batch, steps,
+        guidance, scheduler index, token length) over the control group,
+        then its example tensors, noise and row noise."""
+        import torch
+
+        from photoverse_tpu_torch.core.schedulers import SCHEDULER_NAMES
+
+        steps, guidance, scheduler = pipe.key
+        ids = example["text_input_ids"]
+        self.mesh.control_comm.broadcast(self._header(
+            1, noise.shape[0], steps, guidance, SCHEDULER_NAMES.index(scheduler), ids.shape[1]))
+        world = self.mesh.world_comm
+        for k in self._DEVICE_KEYS:
+            world.broadcast(example[k].to(torch.int32 if k in self._INT_KEYS else torch.float32))
+        world.broadcast(noise.float())
+        if row_noise is not None:
+            world.broadcast(row_noise.float())
+
+    def follow(self) -> None:
+        """A follower rank's loop: receive each batch rank 0 enqueues and
+        run the same pipeline on it (the images stay on rank 0); return on
+        rank 0's stop."""
+        import torch
+
+        from photoverse_tpu_torch.core.schedulers import SCHEDULER_NAMES
+
+        world = self.mesh.world_comm
+        latent, in_ch = self.latent_size, self.models.unet.config.in_channels
+
+        def recv(shape, dtype):
+            return world.broadcast(torch.empty(shape, dtype=dtype, device=self.device))
+
+        while True:
+            head = [float(x) for x in self.mesh.control_comm.broadcast(self._header())]
+            if head[0] == 0:
+                return
+            b, steps, sched, length = int(head[1]), int(head[2]), int(head[4]), int(head[5])
+            pipe = self._pipeline(b, steps, head[3], SCHEDULER_NAMES[sched])
+            shapes = {"pixel_values_clip": (b, self.clip_size, self.clip_size, 3),
+                      "text_input_ids": (b, length), "concept_placeholder_idx": (b,),
+                      "negative_text_input_ids": (b, length)}
+            example = {k: recv(shapes[k], torch.int32 if k in self._INT_KEYS else torch.float32)
+                       for k in self._DEVICE_KEYS}
+            noise = recv((b, latent, latent, in_ch), torch.float32)
+            row_noise = None
+            if pipe.solver.is_ancestral:
+                row_noise = recv((pipe.solver.num_steps, b, latent, latent, in_ch), torch.float32)
+            pipe(example, noise, row_noise)
+
+    def stop_followers(self) -> None:
+        """Rank 0: end the followers' loops (after the batch in flight)."""
+        with self._lead_lock:
+            self.mesh.control_comm.broadcast(self._header())
 
     # ------------------------------------------------------------------
 
@@ -722,6 +832,29 @@ def make_handler(service: PhotoVerseService):
 def main(argv=None):
     args = build_parser().parse_args(argv)
     service = PhotoVerseService(args)
+    mesh = service.mesh
+    try:
+        if mesh is not None and mesh.rank != 0:
+            import signal
+
+            # the launcher signals every rank; rank 0's stop ends this loop
+            signal.signal(signal.SIGTERM, signal.SIG_IGN)
+            signal.signal(signal.SIGINT, signal.SIG_IGN)
+            service.follow()
+            print(f"[serve] rank {mesh.rank}: stopped by rank 0", flush=True)
+            return
+        with contextlib.ExitStack() as stack:
+            if mesh is not None:
+                stack.callback(service.stop_followers)
+            _serve(args, service)
+    finally:
+        if mesh is not None:
+            from photoverse_tpu_torch.parallel.mesh import close_mesh
+
+            close_mesh(mesh)
+
+
+def _serve(args, service):
     if args.warmup:
         service.warmup()
     # dynamic batching needs concurrent handlers so requests can overlap in
@@ -742,10 +875,13 @@ def main(argv=None):
     signal.signal(signal.SIGINT, _term)
 
     mode = "dynamic batching" if args.dynamic_batching else "sequential"
-    print(f"[serve] listening on http://{args.host}:{args.port} ({mode}, {service.device})")
+    ranks = "" if service.mesh is None else f", --sharding {args.sharding} over {service.mesh.world} ranks"
+    host, port = server.server_address[:2]
+    print(f"[serve] listening on http://{host}:{port} ({mode}, {service.device}{ranks})", flush=True)
     server.serve_forever()
+    server.server_close()
     drained = service.drain()
-    print(f"[serve] {'drained' if drained else 'DRAIN TIMEOUT'}; exiting")
+    print(f"[serve] {'drained' if drained else 'DRAIN TIMEOUT'}; exiting", flush=True)
 
 
 if __name__ == "__main__":

@@ -18,7 +18,7 @@ optimizer-step boundary on SIGTERM or SIGINT, sample grids with the
 in-train face_similarity metric, and a torch.profiler window.
 
 Refused with a message, never ignored: --fsdp, --tensor_parallel > 1,
---shard_optimizer_state (multi-GPU, not ported yet), --push_to_hub (needs
+--shard_optimizer_state (multi-GPU training, ROADMAP.md Queue 1), --push_to_hub (needs
 the network) and --mixed_precision fp16 (the JAX CLI refuses it too).
 """
 
@@ -60,7 +60,8 @@ RECIPE_PRESETS = {
     ),
 }
 
-UNPORTED = "is not ported to photoverse_tpu_torch yet (ROADMAP.md, Queue 1); run without it"
+UNPORTED = ("is not ported to photoverse_tpu_torch yet (ROADMAP.md, Queue 1: the training half of "
+            "`parallel/`); run without it")
 
 
 def build_parser() -> argparse.ArgumentParser:

@@ -34,9 +34,11 @@ class NativeLoaderUnavailable(RuntimeError):
 
 def _build() -> str:
     try:
-        # -ffast-math: the resize convolutions have no NaN / inf semantics
-        return build_native_lib("dataloader.cc", "libpvdataloader.so",
-                                extra_flags=["-ffast-math", "-ljpeg", "-lpng"])
+        # -ffast-math: the resize convolutions have no NaN / inf semantics;
+        # compiled with it, not linked with it (the process keeps IEEE
+        # subnormals)
+        return build_native_lib("dataloader.cc", "libpvdataloader.so", extra_flags=["-ljpeg", "-lpng"],
+                                compile_flags=["-ffast-math"])
     except NativeBuildError as e:
         raise NativeLoaderUnavailable(str(e)) from e
 

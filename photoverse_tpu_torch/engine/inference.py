@@ -24,6 +24,13 @@ core/schedulers.py. Port of photoverse_tpu/engine/inference.py.
     n steps carry gradients, recompute the context K/V (so gradients reach
     to_k_ip / to_v_ip / LoRA) and, with train=True, run the UNet in train
     mode on the caller's per-step draws (the face loss's inner generation).
+  - Multi-GPU (parallel/): `spatial` (a parallel.sp.Spatial, where the JAX
+    package takes `latent_sharding`) splits the latent rows over the model
+    group: every draw is made whole, as one process makes it, and cut to
+    the rank's rows; conditioning runs whole on every rank; the decoded
+    rows are gathered. The data split happens outside: `draw_noise` makes
+    a batch's draws as run_inference would, and the caller passes each
+    rank its rows.
 """
 
 from __future__ import annotations
@@ -31,6 +38,7 @@ from __future__ import annotations
 import contextlib
 from typing import Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
@@ -50,8 +58,10 @@ __all__ = [
     "make_row_generators",
     "draw_initial_noise",
     "draw_ancestral_noise",
+    "draw_noise",
     "denoise",
     "run_inference",
+    "run_inference_sharded",
 ]
 
 _ROW_TAG = 0xA9CE  # marks the seeds of the per-row ancestral generators
@@ -82,6 +92,25 @@ def draw_ancestral_noise(row_generators: Sequence[torch.Generator], num_steps: i
     stream does not depend on the sampler's zero pattern."""
     rows = [draw_initial_noise(g, (num_steps, *row_shape), device) for g in row_generators]
     return torch.stack(rows, dim=1)
+
+
+def draw_noise(models: PhotoVerseModels, solver, generator: torch.Generator, batch: int,
+               latent_size: int, from_noised_image: bool = False) -> dict:
+    """The draws run_inference makes from `generator` for a batch of
+    `batch` rows when the caller passes none: {"initial_noise",
+    "vae_noise" (from_noised_image only), "ancestral_noise" (ancestral
+    solvers only)}, each whole, on the models' device. A data-parallel
+    caller draws them once and hands each rank its rows, so a row's draws
+    do not depend on the number of ranks."""
+    dev = models.device
+    shape = (batch, latent_size, latent_size, models.unet.config.in_channels)
+    out = {"initial_noise": draw_initial_noise(generator, shape, dev)}
+    if from_noised_image:
+        out["vae_noise"] = draw_initial_noise(generator, shape, dev)
+    if solver.is_ancestral:
+        gens = make_row_generators(generator.initial_seed(), batch, generator.device)
+        out["ancestral_noise"] = draw_ancestral_noise(gens, solver.num_steps, shape[1:], dev)
+    return out
 
 
 def precompute_ctx_kv(models: PhotoVerseModels, text_ctx: torch.Tensor, id_ctx: torch.Tensor):
@@ -141,6 +170,7 @@ def denoise(
     ip_mask: Optional[torch.Tensor] = None,  # (B, Hm, Wm) identity mask
     ancestral_noise: Optional[torch.Tensor] = None,  # (N, B, h, w, 4)
     row_generators: Optional[Sequence[torch.Generator]] = None,  # B of them
+    spatial=None,  # parallel.sp.Spatial: `latents` are this rank's rows
 ) -> torch.Tensor:
     """The full trajectory of `solver`; returns the final latents.
 
@@ -152,7 +182,11 @@ def denoise(
 
     An ancestral solver needs its per-step noise: `ancestral_noise`
     (N, B, h, w, 4), or `row_generators`, one per batch row, from which
-    `draw_ancestral_noise` draws it before the loop."""
+    `draw_ancestral_noise` draws it before the loop.
+
+    With `spatial`, `latents` (and the latents returned) are this rank's
+    block of rows; `ancestral_noise` is whole, or drawn whole from
+    `row_generators`, and cut to the same rows."""
     use_cfg = guidance_scale != 1.0 and uncond_text_ctx is not None
     if train and num_grad_steps > 0 and (step_draws is None or len(step_draws) < num_grad_steps):
         raise ValueError("train=True grad steps need one step_draws entry per grad step")
@@ -166,7 +200,12 @@ def denoise(
                     "or one generator per batch row, so that a row's trajectory does not depend "
                     "on its batch (run_inference derives the generators from its own)"
                 )
-            ancestral_noise = draw_ancestral_noise(row_generators, n, latents.shape[1:], latents.device)
+            whole = list(latents.shape[1:])
+            if spatial is not None:
+                whole[0] *= spatial.size
+            ancestral_noise = draw_ancestral_noise(row_generators, n, whole, latents.device)
+        if spatial is not None:
+            ancestral_noise = spatial.rows(ancestral_noise, 2)
         if tuple(ancestral_noise.shape) != (n, *latents.shape):
             raise ValueError(f"ancestral_noise is {tuple(ancestral_noise.shape)}, want {(n, *latents.shape)}")
     if use_cfg:
@@ -238,6 +277,7 @@ def run_inference(
     ancestral_noise=None,
     row_generators: Optional[Sequence[torch.Generator]] = None,
     vae_noise=None,
+    spatial=None,
 ) -> torch.Tensor:
     """Generate images for a preprocessed example batch.
 
@@ -263,7 +303,15 @@ def run_inference(
          batch. A caller that coalesces requests (cli/serve.py) makes each
          request's noise with `make_row_generators(seed, n, device)`,
          which is the same derivation.
+
+    `spatial` (parallel.sp.Spatial; the UNet and the VAE decoder split by
+    parallel.sp.enable_spatial with it) runs the denoise loop and the
+    decode on this rank's latent rows: the draws above are made whole and
+    cut, and the returned images are gathered whole on every rank.
     """
+    if spatial is not None and (models.unet.spatial is not spatial or models.vae.decoder.spatial is not spatial):
+        raise ValueError("run_inference(spatial=...) needs the UNet and the VAE decoder split with the same "
+                         "Spatial (parallel.sp.enable_spatial)")
     dev = models.device
     px_clip = torch.as_tensor(example["pixel_values_clip"], device=dev).to(models.dtype)
     ids = torch.as_tensor(example["text_input_ids"], device=dev).long()
@@ -291,6 +339,8 @@ def run_inference(
         row_generators = make_row_generators(generator.initial_seed(), B, generator.device)
     if ancestral_noise is not None:
         ancestral_noise = torch.as_tensor(ancestral_noise, device=dev).float()
+    if spatial is not None:
+        latents = spatial.rows(latents, 1)
     if ip_mask is not None:
         ip_mask = torch.as_tensor(ip_mask, device=dev).float()
 
@@ -312,7 +362,60 @@ def run_inference(
 
     latents = denoise(
         models, solver, latents, text_ctx, id_ctx, uncond_text_ctx, uncond_id_ctx, guidance_scale,
-        ip_mask=ip_mask, ancestral_noise=ancestral_noise, row_generators=row_generators,
+        ip_mask=ip_mask, ancestral_noise=ancestral_noise, row_generators=row_generators, spatial=spatial,
     )
     images = models.vae.decode(latents / models.scaling_factor)
+    if spatial is not None:
+        images = spatial.gather_rows(images, 1)
     return images.clamp(-1.0, 1.0)
+
+
+_ROW_KEYS = ("pixel_values", "pixel_values_clip", "text_input_ids", "concept_placeholder_idx",
+             "negative_text_input_ids")
+
+
+def run_inference_sharded(
+    models: PhotoVerseModels,
+    solver: DPMSolverMultistep,
+    example: dict,
+    generator: torch.Generator,
+    mesh,
+    spatial=None,
+    *,
+    latent_size: int = 64,
+    from_noised_image: bool = False,
+    uncond_input_ids=None,
+    ip_mask=None,
+    draws: Optional[dict] = None,
+    **kw,
+) -> torch.Tensor:
+    """run_inference over a parallel.mesh.Mesh, as the generate CLI runs it
+    under --sharding. The batch is padded to a multiple of the data ranks
+    by repeating its last row (its draws too), as the JAX CLI pads it; the
+    draws are made whole, as one process makes them (`draw_noise`, unless
+    `draws` holds them); each data rank runs its rows (split over its
+    model group by `spatial` or by the tensor-parallel UNet); the images
+    are gathered over the data ranks and the padding dropped. Returns the
+    whole batch's images on every rank."""
+    from photoverse_tpu_torch.parallel.mesh import data_rows, pad_rows, padded_rows
+
+    B = len(example["text_input_ids"])
+    if draws is None:
+        draws = draw_noise(models, solver, generator, B, latent_size, from_noised_image)
+    total = padded_rows(B, mesh.dp)
+    rows = data_rows(total, mesh)
+
+    def local(x, dim=0):
+        if x is None:
+            return None
+        x = pad_rows(x, total, dim)
+        return x[rows] if dim == 0 else x[:, rows]
+
+    ex = {k: local(np.asarray(example[k])) for k in _ROW_KEYS if example.get(k) is not None}
+    images = run_inference(
+        models, solver, ex, generator, latent_size=latent_size, from_noised_image=from_noised_image,
+        uncond_input_ids=local(None if uncond_input_ids is None else np.asarray(uncond_input_ids)),
+        ip_mask=local(None if ip_mask is None else np.asarray(ip_mask)),
+        initial_noise=local(draws["initial_noise"]), vae_noise=local(draws.get("vae_noise")),
+        ancestral_noise=local(draws.get("ancestral_noise"), dim=1), spatial=spatial, **kw)
+    return mesh.data_comm.all_gather(images, 0)[:B]

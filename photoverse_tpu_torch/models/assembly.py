@@ -31,7 +31,7 @@ from photoverse_tpu_torch.models.clip import (
 from photoverse_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from photoverse_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
-__all__ = ["PhotoVerseModels", "build_models", "init_params", "load_models", "cast_params"]
+__all__ = ["PhotoVerseModels", "build_models", "init_params", "load_models", "cast_params", "model_configs"]
 
 MODEL_NAMES = ("text_encoder", "vision_encoder", "unet", "vae", "text_adapter", "image_adapter")
 
@@ -135,16 +135,26 @@ def _fill(name: str, module: nn.Module, shape, rng: np.random.Generator) -> np.n
     return rng.standard_normal(shape, dtype=np.float32) * np.float32(np.sqrt(1.0 / max(fan_in, 1)))
 
 
-@torch.no_grad()
 def init_params(models: PhotoVerseModels, seed: int = 0) -> PhotoVerseModels:
-    """Fill every parameter from numpy (seed + model index), in place."""
-    for i, name in enumerate(MODEL_NAMES):
+    """Fill every parameter from numpy (seed + model index), in place. Each
+    model draws from its own generator in its parameters' order, so the
+    models fill in threads of their own (numpy's fills release the GIL)
+    and the values do not depend on it."""
+
+    @torch.no_grad()
+    def fill(i: int, name: str) -> None:
         rng = np.random.default_rng(seed + i)
         sub = getattr(models, name)
         owners = {n: m for n, m in sub.named_modules()}
         for pname, p in sub.named_parameters():
             mod = owners[pname.rsplit(".", 1)[0]] if "." in pname else sub
             p.copy_(torch.from_numpy(_fill(pname, mod, tuple(p.shape), rng)))
+
+    from concurrent.futures import ThreadPoolExecutor
+
+    with ThreadPoolExecutor(len(MODEL_NAMES)) as pool:
+        for f in [pool.submit(fill, i, name) for i, name in enumerate(MODEL_NAMES)]:
+            f.result()
     return models
 
 
@@ -207,6 +217,14 @@ def _vision_config_from(folder: str) -> CLIPVisionConfig:
         image_size=c.get("image_size", 224),
         patch_size=c.get("patch_size", 14),
     )
+
+
+def model_configs(root: str) -> Tuple[UNetConfig, VAEConfig]:
+    """The UNet and VAE configs of a diffusers-layout directory, read
+    without loading any weight (what the CLIs validate a sharding mode
+    against before they open the process group)."""
+    unet_cfg, vae_cfg, _ = _configs_from_checkpoint(root, 0, 1.0, 0.0)
+    return unet_cfg, vae_cfg
 
 
 def _schedule_from(root: str) -> DDPMSchedule:

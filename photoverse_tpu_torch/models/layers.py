@@ -3,6 +3,11 @@ bf16 model, the resnet block, the two linear forms of the cross-attention
 projections (with LoRA dropout in train mode), and the containers that give
 modules their diffusers key paths.
 
+Under spatial parallelism (parallel/sp.py) a `Spatial` split set on
+`Conv2d.spatial` and `GroupNorm.spatial` makes the 3x3 convolutions take
+their halo rows from the neighbouring ranks and the norms sum their
+moments over the model group; unset (None), both are the plain layers.
+
 Trainable weights may stay f32 masters inside a bf16 model: `Linear`
 casts its weight to the activation's dtype in `forward`, as flax's
 `dtype=` does, so the same module serves both."""
@@ -16,20 +21,45 @@ from torch import nn
 import torch.nn.functional as F
 
 __all__ = [
-    "GroupNorm", "LayerNorm", "Linear", "LoraLinear", "ResnetBlock", "Group", "Sampler",
+    "Conv2d", "GroupNorm", "LayerNorm", "Linear", "LoraLinear", "ResnetBlock", "Group", "Sampler",
     "proj", "dropout", "remat", "replaying",
 ]
 
 
+class Conv2d(nn.Conv2d):
+    """nn.Conv2d whose rows may be split over ranks (`spatial`)."""
+
+    spatial = None  # parallel.sp.Spatial
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spatial is None:
+            return super().forward(x)
+        return self.spatial.conv2d(x, self.weight, self.bias, self.stride[0], self.padding[0])
+
+    def forward_f32(self, x: torch.Tensor) -> torch.Tensor:
+        """The convolution with input, weight and bias in f32."""
+        w, b = self.weight.float(), self.bias.float()
+        if self.spatial is None:
+            return F.conv2d(x.float(), w, b, self.stride, self.padding)
+        return self.spatial.conv2d(x.float(), w, b, self.stride[0], self.padding[0])
+
+
 class GroupNorm(nn.GroupNorm):
     """GroupNorm whose arithmetic runs in f32 when `f32` is set (the
-    reference's default), or in the input dtype (its `fast_norms`)."""
+    reference's default), or in the input dtype (its `fast_norms`; PyTorch's
+    kernel still computes a bf16 input in f32 and rounds once). With
+    `spatial` set, the moments span every rank's rows (Spatial.group_norm:
+    the same f32 arithmetic, returned in the input dtype)."""
+
+    spatial = None  # parallel.sp.Spatial
 
     def __init__(self, groups: int, channels: int, eps: float, f32: bool = True):
         super().__init__(groups, channels, eps=eps)
         self.f32 = f32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if self.spatial is not None:
+            return self.spatial.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
         if self.f32:
             return F.group_norm(
                 x.float(), self.num_groups, self.weight.float(), self.bias.float(), self.eps
@@ -161,10 +191,10 @@ class ResnetBlock(nn.Module):
                  eps: float, norm_f32: bool):
         super().__init__()
         self.norm1 = GroupNorm(groups, in_ch, eps, norm_f32)
-        self.conv1 = nn.Conv2d(in_ch, out_ch, 3, padding=1)
+        self.conv1 = Conv2d(in_ch, out_ch, 3, padding=1)
         self.time_emb_proj = nn.Linear(temb_dim, out_ch) if temb_dim else None
         self.norm2 = GroupNorm(groups, out_ch, eps, norm_f32)
-        self.conv2 = nn.Conv2d(out_ch, out_ch, 3, padding=1)
+        self.conv2 = Conv2d(out_ch, out_ch, 3, padding=1)
         self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:

@@ -30,6 +30,17 @@ so a recomputed flash layer launches its lse forward a second time).
 each block resizes it to its own latent resolution and computes text
 attention + 2 x identity attention x mask, with no stochastic fusion and
 without the fused tail.
+
+Multi-GPU (parallel/): `UNet2DCondition(config, tp=TPShard(...))` builds
+one rank's shard of a tensor-parallel UNet (the column-parallel
+projections at H / tp heads, to_out and the feed-forward's output as
+parallel.tp.RowParallelLinear); its `v_ip_norms` then hold the rank's
+heads only. A `parallel.sp.Spatial` set by `parallel.sp.enable_spatial`
+splits the latent rows: the 3x3 convolutions and GroupNorms exchange rows
+or moments, self-attention gathers K and V (or hands them to
+`UNetConfig.flash_fn`), and the identity mask is resized whole and then
+cut to the rank's rows. `UNetConfig.flash_fn`, when set, is called in
+place of the bare flash kernel (parallel/flash.py's wrapper).
 """
 
 from __future__ import annotations
@@ -38,7 +49,7 @@ import dataclasses
 import functools
 import itertools
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Callable, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -46,10 +57,13 @@ from torch import nn
 import torch.nn.functional as F
 
 from photoverse_tpu_torch.models import layers
-from photoverse_tpu_torch.models.layers import GroupNorm, Group, LayerNorm, Linear, ResnetBlock, Sampler, proj
+from photoverse_tpu_torch.models.layers import (
+    Conv2d, GroupNorm, Group, LayerNorm, Linear, ResnetBlock, Sampler, proj,
+)
 from photoverse_tpu_torch.ops.attention import dual_context_attention, sdpa
 from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa, flash_sdpa_diff
 from photoverse_tpu_torch.ops.fused_block import fused_cross_ff
+from photoverse_tpu_torch.parallel.tp import RowParallelLinear, TPShard
 
 __all__ = ["UNetConfig", "UNet2DCondition", "timestep_embedding"]
 
@@ -72,6 +86,9 @@ class UNetConfig:
     lora_dropout: float = 0.0  # on the LoRA branch's input, train mode only
     use_flash_attention: bool = False
     flash_min_seq: int = 1024
+    # called as flash_fn(q, k, v) in place of the bare flash kernel (the
+    # sharded wrapper of parallel/flash.py)
+    flash_fn: Optional[Callable] = None
     fast_attention_scores: bool = False
     fast_norms: bool = False
     fused_blocks: bool = False
@@ -133,31 +150,53 @@ def _downsample_ip_mask(ip_mask: Optional[torch.Tensor], B: int, Hh: int, Ww: in
     return m.reshape(B, Hh * Ww)
 
 
+def _out_proj(local: int, ch: int, tp: Optional[TPShard]) -> nn.Module:
+    """to_out / the feed-forward's output: row-parallel under TP."""
+    return nn.Linear(local, ch) if tp is None else RowParallelLinear(local, ch, tp.comm)
+
+
+def _tp_size(tp: Optional[TPShard]) -> int:
+    return 1 if tp is None else tp.size
+
+
 class SelfAttention(nn.Module):
     """attn1; long sequences take the flash kernels when enabled: the
-    differentiable route when grad is enabled, the no-grad one otherwise."""
+    differentiable route when grad is enabled, the no-grad one otherwise,
+    or `UNetConfig.flash_fn` when set. The length that decides is the whole
+    sequence's, also when the rows are split (`spatial`)."""
 
-    def __init__(self, ch: int, heads: int, cfg: UNetConfig):
+    spatial = None  # parallel.sp.Spatial
+
+    def __init__(self, ch: int, heads: int, cfg: UNetConfig, tp: Optional[TPShard] = None):
         super().__init__()
-        self.heads = heads
+        n = _tp_size(tp)
+        self.heads = heads // n
         self.cfg = cfg
-        self.to_q = nn.Linear(ch, ch, bias=False)
-        self.to_k = nn.Linear(ch, ch, bias=False)
-        self.to_v = nn.Linear(ch, ch, bias=False)
-        self.to_out = nn.ModuleList([nn.Linear(ch, ch)])
+        self.to_q = nn.Linear(ch, ch // n, bias=False)
+        self.to_k = nn.Linear(ch, ch // n, bias=False)
+        self.to_v = nn.Linear(ch, ch // n, bias=False)
+        self.to_out = nn.ModuleList([_out_proj(ch // n, ch, tp)])
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        B, S, C = x.shape
+        B, S, _ = x.shape
         H = self.heads
-        q = self.to_q(x).reshape(B, S, H, C // H)
-        k = self.to_k(x).reshape(B, S, H, C // H)
-        v = self.to_v(x).reshape(B, S, H, C // H)
-        cfg = self.cfg
-        if cfg.use_flash_attention and S >= cfg.flash_min_seq:
-            out = (flash_sdpa_diff if torch.is_grad_enabled() else flash_sdpa)(q, k, v)
+        q = self.to_q(x).reshape(B, S, H, -1)
+        k = self.to_k(x).reshape(B, S, H, -1)
+        v = self.to_v(x).reshape(B, S, H, -1)
+        cfg, sp = self.cfg, self.spatial
+        if cfg.use_flash_attention and S * (1 if sp is None else sp.size) >= cfg.flash_min_seq:
+            if cfg.flash_fn is not None:
+                out = cfg.flash_fn(q, k, v)
+            elif sp is not None:
+                raise ValueError("a height-split UNet takes the flash kernel only through the sharded wrapper "
+                                 "(parallel.flash.enable_sharded_flash)")
+            else:
+                out = (flash_sdpa_diff if torch.is_grad_enabled() else flash_sdpa)(q, k, v)
         else:
+            if sp is not None:
+                k, v = sp.gather_rows(k, 1), sp.gather_rows(v, 1)
             out = sdpa(q, k, v, fast_scores=cfg.fast_attention_scores)
-        return self.to_out[0](out.reshape(B, S, C))
+        return self.to_out[0](out.reshape(B, S, -1))
 
 
 class _IPProcessor(nn.Module):
@@ -173,15 +212,16 @@ class DualCrossAttention(nn.Module):
     `ip_mask` (B, S) text + MASK_FUSION_SCALE x identity x mask. Returns
     (out, v_ip_norm (B, H, K))."""
 
-    def __init__(self, ch: int, heads: int, cfg: UNetConfig):
+    def __init__(self, ch: int, heads: int, cfg: UNetConfig, tp: Optional[TPShard] = None):
         super().__init__()
-        self.heads = heads
+        n = _tp_size(tp)
+        self.heads = heads // n
         cd, r, a, p = cfg.cross_attention_dim, cfg.lora_rank, cfg.lora_alpha, cfg.lora_dropout
-        self.to_q = proj(ch, ch, r, a, p)
-        self.to_k = proj(cd, ch, r, a, p)
-        self.to_v = proj(cd, ch, r, a, p)
-        self.to_out = nn.ModuleList([nn.Linear(ch, ch)])
-        self.processor = _IPProcessor(cd, ch)
+        self.to_q = proj(ch, ch // n, r, a, p)
+        self.to_k = proj(cd, ch // n, r, a, p)
+        self.to_v = proj(cd, ch // n, r, a, p)
+        self.to_out = nn.ModuleList([_out_proj(ch // n, ch, tp)])
+        self.processor = _IPProcessor(cd, ch // n)
 
     def context_kv(self, text_ctx: torch.Tensor, id_ctx: torch.Tensor, train: bool = False,
                    generator: Optional[torch.Generator] = None):
@@ -197,8 +237,8 @@ class DualCrossAttention(nn.Module):
 
     def forward(self, x, text_ctx, id_ctx, ctx_kv=None, train=False, fusion_u=None, generator=None,
                 ip_mask=None):
-        B, S, C = x.shape
-        q = self.to_q(x, train, generator).reshape(B, S, self.heads, C // self.heads)
+        B, S, _ = x.shape
+        q = self.to_q(x, train, generator).reshape(B, S, self.heads, -1)
         if ctx_kv is None:
             ctx_kv = self.context_kv(text_ctx, id_ctx, train, generator)
         k, v, k_ip, v_ip = (t.to(x.dtype) for t in ctx_kv)
@@ -208,13 +248,17 @@ class DualCrossAttention(nn.Module):
             v_ip_norm = v_ip.float().square().sum(dim=-1).sqrt().transpose(1, 2)
         else:
             fused, v_ip_norm = dual_context_attention(q, k, v, k_ip, v_ip, train=train, fusion_u=fusion_u)
-        return self.to_out[0](fused.reshape(B, S, C)), v_ip_norm
+        return self.to_out[0](fused.reshape(B, S, -1)), v_ip_norm
 
 
 class _GEGLUProj(nn.Module):
-    def __init__(self, ch: int):
+    """The GEGLU up-projection: outputs [value; gate]. Under TP a rank's
+    weight is [value slice r; gate slice r] (parallel.tp.shard_state_dict),
+    so the same split gives it its own value and gate slices."""
+
+    def __init__(self, ch: int, out: int):
         super().__init__()
-        self.proj = nn.Linear(ch, 8 * ch)
+        self.proj = nn.Linear(ch, out)
 
     def forward(self, x):
         a, gate = self.proj(x).chunk(2, dim=-1)
@@ -222,26 +266,28 @@ class _GEGLUProj(nn.Module):
 
 
 class _FeedForward(nn.Module):
-    def __init__(self, ch: int):
+    def __init__(self, ch: int, tp: Optional[TPShard] = None):
         super().__init__()
+        n = _tp_size(tp)
         # diffusers keys ff.net.0.proj / ff.net.2 (index 1 is a dropout)
-        self.net = nn.ModuleList([_GEGLUProj(ch), nn.Identity(), nn.Linear(4 * ch, ch)])
+        self.net = nn.ModuleList([_GEGLUProj(ch, 8 * ch // n), nn.Identity(),
+                                  _out_proj(4 * ch // n, ch, tp)])
 
     def forward(self, x):
         return self.net[2](self.net[0](x))
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, ch: int, cfg: UNetConfig):
+    def __init__(self, ch: int, cfg: UNetConfig, tp: Optional[TPShard] = None):
         super().__init__()
         nf = not cfg.fast_norms
         self.heads = cfg.num_heads
         self.norm1 = LayerNorm(ch, 1e-5, nf)
-        self.attn1 = SelfAttention(ch, cfg.num_heads, cfg)
+        self.attn1 = SelfAttention(ch, cfg.num_heads, cfg, tp)
         self.norm2 = LayerNorm(ch, 1e-5, nf)
-        self.attn2 = DualCrossAttention(ch, cfg.num_heads, cfg)
+        self.attn2 = DualCrossAttention(ch, cfg.num_heads, cfg, tp)
         self.norm3 = LayerNorm(ch, 1e-5, nf)
-        self.ff = _FeedForward(ch)
+        self.ff = _FeedForward(ch, tp)
 
     def forward(self, h, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None, ip_mask=None, **train_kw):
         h = h + self.attn1(self.norm1(h))
@@ -258,18 +304,29 @@ class BasicTransformerBlock(nn.Module):
 class Transformer2D(nn.Module):
     """GN -> proj_in -> BasicTransformerBlock -> proj_out (+ residual)."""
 
-    def __init__(self, ch: int, cfg: UNetConfig):
+    spatial = None  # parallel.sp.Spatial
+
+    def __init__(self, ch: int, cfg: UNetConfig, tp: Optional[TPShard] = None):
         super().__init__()
         self.norm = GroupNorm(cfg.norm_num_groups, ch, 1e-6, not cfg.fast_norms)
         self.proj_in = nn.Conv2d(ch, ch, 1)
-        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, cfg)])
+        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, cfg, tp)])
         self.proj_out = nn.Conv2d(ch, ch, 1)
+
+    def _mask(self, ip_mask, B, Hh, Ww):
+        """The identity mask at this block's resolution (B, Hh * Ww): under
+        a row split resized whole, then cut to this rank's rows."""
+        sp = self.spatial
+        if sp is None or ip_mask is None:
+            return _downsample_ip_mask(ip_mask, B, Hh, Ww)
+        m = _downsample_ip_mask(ip_mask, B, Hh * sp.size, Ww).reshape(B, Hh * sp.size, Ww)
+        return sp.rows(m, 1).reshape(B, Hh * Ww)
 
     def forward(self, x, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None, ip_mask=None, **train_kw):
         B, C, Hh, Ww = x.shape
         h = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(B, Hh * Ww, C)
         h, vn = self.transformer_blocks[0](h, text_ctx, id_ctx, ctx_kv, fused_bundle,
-                                           _downsample_ip_mask(ip_mask, B, Hh, Ww), **train_kw)
+                                           self._mask(ip_mask, B, Hh, Ww), **train_kw)
         h = h.reshape(B, Hh, Ww, C).permute(0, 3, 1, 2)
         return self.proj_out(h) + x, vn
 
@@ -282,10 +339,17 @@ class UNet2DCondition(nn.Module):
     cross-attention layer in call order (the JAX package draws them as
     uniform(fold_in(fusion_rng, i))), and, with lora_dropout > 0, the
     `dropout_generator` the LoRA masks are drawn from. `ip_mask` (B, Hm, Wm)
-    takes every block down the masked route (no fused tail)."""
+    takes every block down the masked route (no fused tail).
 
-    def __init__(self, config: UNetConfig = UNetConfig()):
+    `tp` builds rank tp.rank's shard of a tensor-parallel UNet (load it with
+    parallel.tp.shard_state_dict or build it with parallel.tp.shard_unet)."""
+
+    spatial = None  # parallel.sp.Spatial: the split its layers were given
+
+    def __init__(self, config: UNetConfig = UNetConfig(), tp: Optional[TPShard] = None):
         super().__init__()
+        if tp is not None and config.num_heads % tp.size:
+            raise ValueError(f"tensor_parallel={tp.size} must divide num_heads={config.num_heads}")
         self.config = cfg = config
         ch = cfg.block_out_channels
         n = len(ch)
@@ -296,7 +360,7 @@ class UNet2DCondition(nn.Module):
         def res(i, o):
             return ResnetBlock(i, o, tdim, G, 1e-5, nf)
 
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.time_embedding = Group()
         self.time_embedding.linear_1 = nn.Linear(ch[0], tdim)
         self.time_embedding.linear_2 = nn.Linear(tdim, tdim)
@@ -310,15 +374,15 @@ class UNet2DCondition(nn.Module):
             for j in range(cfg.layers_per_block):
                 blk.resnets.append(res(in_c if j == 0 else c, c))
                 if i < n - 1:
-                    blk.attentions.append(Transformer2D(c, cfg))
+                    blk.attentions.append(Transformer2D(c, cfg, tp))
             if i < n - 1:
-                blk.downsamplers = nn.ModuleList([Sampler(nn.Conv2d(c, c, 3, stride=2, padding=1))])
+                blk.downsamplers = nn.ModuleList([Sampler(Conv2d(c, c, 3, stride=2, padding=1))])
             in_c = c
             self.down_blocks.append(blk)
 
         self.mid_block = Group()
         self.mid_block.resnets = nn.ModuleList([res(ch[-1], ch[-1]), res(ch[-1], ch[-1])])
-        self.mid_block.attentions = nn.ModuleList([Transformer2D(ch[-1], cfg)])
+        self.mid_block.attentions = nn.ModuleList([Transformer2D(ch[-1], cfg, tp)])
 
         rev = list(reversed(ch))
         self.up_blocks = nn.ModuleList()
@@ -332,14 +396,22 @@ class UNet2DCondition(nn.Module):
                 skip_c = skip_last if j == cfg.layers_per_block else c
                 blk.resnets.append(res((prev if j == 0 else c) + skip_c, c))
                 if i > 0:
-                    blk.attentions.append(Transformer2D(c, cfg))
+                    blk.attentions.append(Transformer2D(c, cfg, tp))
             if i < n - 1:
-                blk.upsamplers = nn.ModuleList([Sampler(nn.Conv2d(c, c, 3, padding=1))])
+                blk.upsamplers = nn.ModuleList([Sampler(Conv2d(c, c, 3, padding=1))])
             prev = c
             self.up_blocks.append(blk)
 
         self.conv_norm_out = GroupNorm(G, ch[0], 1e-5, nf)
-        self.conv_out = nn.Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch[0], cfg.out_channels, 3, padding=1)
+
+    def set_config(self, config: UNetConfig) -> None:
+        """Replace the config of the UNet and of its attention layers
+        (routes only: the shapes must not change)."""
+        self.config = config
+        for m in self.modules():
+            if isinstance(m, SelfAttention):
+                m.cfg = config
 
     def cross_attentions(self):
         """The DualCrossAttention-bearing blocks in call order."""

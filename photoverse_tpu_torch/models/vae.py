@@ -15,6 +15,12 @@ through the decoder).
 mid block, each resnet block and each upsampler keep only their inputs and
 recompute their activations in the backward, so the mid block's stream
 flash launches its lse forward a second time.
+
+Under spatial parallelism (parallel/sp.py) the decoder's rows are split
+over the model group: its 3x3 convolutions (the f32 conv_out too) and
+GroupNorms exchange rows or moments, and the mid block's attention keeps
+its query rows and gathers K and V, on the plain route (the stream kernel
+has no sharded wrapper). The encoder always runs whole.
 """
 
 from __future__ import annotations
@@ -26,7 +32,7 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
-from photoverse_tpu_torch.models.layers import Group, GroupNorm, ResnetBlock, Sampler, remat
+from photoverse_tpu_torch.models.layers import Conv2d, Group, GroupNorm, ResnetBlock, Sampler, remat
 from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa_stream, flash_sdpa_stream_diff
 
 __all__ = ["VAEConfig", "Encoder", "Decoder", "AutoencoderKL"]
@@ -52,6 +58,7 @@ class AttnBlock(nn.Module):
     """Single-head full spatial self-attention (VAE mid block)."""
 
     FLASH_MIN_SEQ = 1024
+    spatial = None  # parallel.sp.Spatial
 
     def __init__(self, ch: int, groups: int, norm_f32: bool, use_flash: bool):
         super().__init__()
@@ -67,6 +74,11 @@ class AttnBlock(nn.Module):
         S = H * W
         h = self.group_norm(x).flatten(2).transpose(1, 2)  # (B, S, C)
         q, k, v = self.to_q(h), self.to_k(h), self.to_v(h)
+        if self.spatial is not None:
+            if self.use_flash:
+                raise ValueError("the VAE's stream kernel has no sharded wrapper: build the VAE with "
+                                 "use_flash_attention off to split its rows")
+            k, v = self.spatial.gather_rows(k, 1), self.spatial.gather_rows(v, 1)
         if self.use_flash and S >= self.FLASH_MIN_SEQ:
             fn = flash_sdpa_stream_diff if torch.is_grad_enabled() else flash_sdpa_stream
             ctx = fn(q[:, :, None], k[:, :, None], v[:, :, None])[:, :, 0]
@@ -90,10 +102,9 @@ def _run_mid(mid: Group, x: torch.Tensor) -> torch.Tensor:
     return mid.resnets[1](mid.attentions[0](mid.resnets[0](x)))
 
 
-def _conv_out_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def _conv_out_f32(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
     """The last conv in f32, as in the reference; NCHW in, NHWC out."""
-    out = F.conv2d(x.float(), conv.weight.float(), conv.bias.float(), padding=1)
-    return out.permute(0, 2, 3, 1)
+    return conv.forward_f32(x).permute(0, 2, 3, 1)
 
 
 class Encoder(nn.Module):
@@ -103,7 +114,7 @@ class Encoder(nn.Module):
         super().__init__()
         ch = cfg.block_out_channels
         G, nf = cfg.norm_num_groups, not cfg.fast_norms
-        self.conv_in = nn.Conv2d(cfg.in_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.in_channels, ch[0], 3, padding=1)
         self.down_blocks = nn.ModuleList()
         prev = ch[0]
         for i, c in enumerate(ch):
@@ -118,7 +129,7 @@ class Encoder(nn.Module):
             self.down_blocks.append(blk)
         self.mid_block = _mid_block(ch[-1], cfg)
         self.conv_norm_out = GroupNorm(G, ch[-1], GN_EPS, nf)
-        self.conv_out = nn.Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch[-1], 2 * cfg.latent_channels, 3, padding=1)
 
     def forward(self, pixels: torch.Tensor) -> torch.Tensor:
         x = self.conv_in(pixels.permute(0, 3, 1, 2).to(self.conv_in.weight.dtype))
@@ -133,6 +144,8 @@ class Encoder(nn.Module):
 
 
 class Decoder(nn.Module):
+    spatial = None  # parallel.sp.Spatial: the split its layers were given
+
     def __init__(self, cfg: VAEConfig):
         super().__init__()
         ch = list(reversed(cfg.block_out_channels))  # (512, 512, 256, 128)
@@ -142,7 +155,7 @@ class Decoder(nn.Module):
         def res(i, o):
             return ResnetBlock(i, o, None, G, GN_EPS, nf)
 
-        self.conv_in = nn.Conv2d(cfg.latent_channels, ch[0], 3, padding=1)
+        self.conv_in = Conv2d(cfg.latent_channels, ch[0], 3, padding=1)
         self.mid_block = _mid_block(ch[0], cfg)
         self.up_blocks = nn.ModuleList()
         prev = ch[0]
@@ -152,11 +165,11 @@ class Decoder(nn.Module):
                 res(prev if j == 0 else c, c) for j in range(cfg.layers_per_block + 1)
             )
             if i < len(ch) - 1:
-                blk.upsamplers = nn.ModuleList([Sampler(nn.Conv2d(c, c, 3, padding=1))])
+                blk.upsamplers = nn.ModuleList([Sampler(Conv2d(c, c, 3, padding=1))])
             prev = c
             self.up_blocks.append(blk)
         self.conv_norm_out = GroupNorm(G, ch[-1], GN_EPS, nf)
-        self.conv_out = nn.Conv2d(ch[-1], cfg.out_channels, 3, padding=1)
+        self.conv_out = Conv2d(ch[-1], cfg.out_channels, 3, padding=1)
 
     def forward(self, z: torch.Tensor, remat_blocks: bool = False) -> torch.Tensor:
         """z (B, h, w, latent) NHWC -> pixels (B, H, W, 3) f32; remat_blocks

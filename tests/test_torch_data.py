@@ -5,6 +5,11 @@ draws from anything but seeded numpy RandomStates, so every output is held
 array-equal, not close.
 """
 
+import ctypes
+import ctypes.util
+import pathlib
+import subprocess
+import sys
 import threading
 import time
 
@@ -138,6 +143,19 @@ def test_preprocessing_matches_jax(data_root):
         tpre.crop_to_mask_and_scale(arr, np.zeros((50, 64), np.uint8))
 
 
+@pytest.fixture(scope="module", autouse=True)
+def _default_fp_env():
+    """This file loads the JAX package's native loader, which is linked with
+    -ffast-math (gcc adds crtfastmath.o) and so turns on flush-to-zero in
+    the process that loads it (ROADMAP.md, Queue 3). The JAX package stays
+    as it is: when the file ends, the worker gets glibc's default
+    floating-point environment back, for the files that run after it."""
+    yield
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.fesetenv.argtypes = [ctypes.c_void_p]
+    assert libm.fesetenv(ctypes.c_void_p(-1)) == 0  # glibc's FE_DFL_ENV is (const fenv_t *) -1
+
+
 def _native_or_skip():
     # the JAX package's own native tests skip when its loader cannot build
     try:
@@ -179,6 +197,32 @@ def test_native_loader_matches_jax(tmp_path, data_root):
         assert len(got) == len(want) == 3
         for a, b in zip(got, want):
             _same_batch(a, b)
+
+
+# run in a fresh process: whatever this worker loaded before does not count
+_SUBNORMAL_PROBE = """
+import sys
+from photoverse_tpu_torch.data.native_loader import NativeLoader, NativeLoaderUnavailable
+try:
+    NativeLoader()
+except NativeLoaderUnavailable as e:
+    print("unavailable", e)
+    sys.exit(0)
+sub = float.fromhex("0x0.0000000000001p-1022")  # the least double, a subnormal
+print("ftz", sys.float_info.min / 2 == 0.0, "daz", sub * 1.0 == 0.0)
+"""
+
+
+def test_native_loader_keeps_ieee_subnormals():
+    """Loading the port's native loader leaves flush-to-zero and
+    denormals-are-zero off in the process: the library is compiled with
+    -ffast-math but not linked with it (gcc would add crtfastmath.o)."""
+    out = subprocess.run([sys.executable, "-c", _SUBNORMAL_PROBE], capture_output=True, text=True, timeout=120,
+                         cwd=str(pathlib.Path(__file__).resolve().parents[1]))
+    assert out.returncode == 0, out.stderr
+    if out.stdout.startswith("unavailable"):
+        pytest.skip(f"native loader unavailable: {out.stdout}")
+    assert out.stdout.split() == ["ftz", "False", "daz", "False"]
 
 
 def test_batch_loader_raises_a_worker_error_and_releases_its_workers(tmp_path, data_root):

@@ -116,7 +116,9 @@ def test_port_imports_neither_pillow_nor_jax_at_import_time():
             "photoverse_tpu_torch.convert.from_diffusers", "photoverse_tpu_torch.engine.inference",
             "photoverse_tpu_torch.cli.eval_face_similarity", "photoverse_tpu_torch.utils.face_similarity",
             "photoverse_tpu_torch.utils.mtcnn", "photoverse_tpu_torch.models.facenet",
-            "photoverse_tpu_torch.ops.quant", "photoverse_tpu_torch.data.native_tokenizer"]
+            "photoverse_tpu_torch.ops.quant", "photoverse_tpu_torch.data.native_tokenizer",
+            "photoverse_tpu_torch.parallel", "photoverse_tpu_torch.parallel.mesh", "photoverse_tpu_torch.parallel.tp",
+            "photoverse_tpu_torch.parallel.sp", "photoverse_tpu_torch.parallel.flash"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in ('PIL', 'jax', 'flax', 'photoverse_tpu', 'transformers') if m in sys.modules]\n"
             "assert not bad, bad\n")

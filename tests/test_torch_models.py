@@ -238,3 +238,25 @@ def test_init_params_follows_the_numpy_fill_rules(pair):
     models.unet.conv_in.weight.zero_()
     again = init_params(models, seed=3).unet.state_dict()
     assert all(torch.equal(sd[k], again[k]) for k in sd)
+
+
+def test_init_params_threads_draw_each_models_sequence_in_order(pair):
+    """init_params fills the six models in threads; each model's values
+    are those of one generator walked through its parameters in order."""
+    from photoverse_tpu_torch.models.assembly import MODEL_NAMES, _fill
+
+    modules, _, port = pair
+    models = init_params(build_models(
+        extra_num_tokens=modules.num_tokens - 1,
+        unet_config=port.unet.config, vae_config=port.vae.config,
+        text_config=port.text_encoder.config, vision_config=port.vision_encoder.config,
+        image_encoder_layers_idx=modules.image_encoder_layers_idx,
+        device="cpu",
+    ), seed=5)
+    for i, name in enumerate(MODEL_NAMES):
+        rng = np.random.default_rng(5 + i)
+        sub = getattr(models, name)
+        owners = dict(sub.named_modules())
+        for pname, p in sub.named_parameters():
+            mod = owners[pname.rsplit(".", 1)[0]] if "." in pname else sub
+            assert np.array_equal(p.detach().numpy(), _fill(pname, mod, tuple(p.shape), rng)), (name, pname)

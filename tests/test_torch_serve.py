@@ -1,6 +1,6 @@
 """The port's generate CLI and PhotoVerseService on the CPU, on the tiny
 diffusers-layout directory of tests/test_cli_e2e.py: PNGs out of the CLI,
-the refused flags, and the service over real HTTP (round trip, coalescing
+the multi-GPU flags at one rank and their validation, and the service over real HTTP (round trip, coalescing
 with per-request seeds, an ancestral sampler, padding, backpressure, drain,
 a mixed burst). 2 steps at 32px, f32.
 
@@ -140,19 +140,43 @@ def test_generate_cli_mask_noised_image_and_ancestral_sampler(ws):
     assert np.abs(a - c).max() > 0  # the mask acts
 
 
-@pytest.mark.parametrize("flags,named", [
-    (["--sharding", "spatial"], "--sharding spatial"), (["--data_parallel"], "--data_parallel"),
-    (["--model_parallel", "2"], "--model_parallel"),
-    # --int8_conditioning runs (tests/test_torch_quant.py); these two cases
-    # asserted its refusal and now hold other multi-GPU flags
-    (["--data_parallel", "--model_parallel", "2"], "--data_parallel, --model_parallel"),
-    (["--sharding", "tensor", "--int8_conditioning"], "--sharding tensor"),
-])
-def test_generate_cli_refuses_unported_flags(ws, flags, named):
+def _gen_argv(ws, out, *flags):
     d, root, face = ws
-    with pytest.raises(SystemExit) as e:
-        tgen.main(["--model_path", root, "--checkpoint_path", "", "--input_image_path", str(face), "--cpu"] + flags)
-    assert named in str(e.value) and "ROADMAP.md, Queue 1" in str(e.value)
+    return (["--model_path", root, "--checkpoint_path", "", "--input_image_path", str(face), "--results_dir",
+             str(d / out), "--num_timesteps", "2", "--resolution", "32", "--encoder_layers_idx", "1", "2", "3", "4",
+             "--seed", "7", "--cpu"] + list(flags))
+
+
+@pytest.fixture(scope="module")
+def gen_plain(ws):
+    tgen.main(_gen_argv(ws, "plain"))
+    return np.asarray(Image.open(ws[0] / "plain" / "generated_image0.png"))
+
+
+# the multi-GPU flags run since parallel/ was ported (the cases asserted
+# their refusal): at one rank they print the JAX CLI's warning and run the
+# one-process pipeline; at WORLD_SIZE 3 a model the mode cannot split exits
+# with validate_tp's / validate_sp's message before any group opens
+# (tests/test_torch_parallel_cli.py runs the modes on two ranks)
+@pytest.mark.parametrize("flags,world,said", [
+    (["--sharding", "spatial"], 1, "WARNING: --sharding spatial requires >1 device (found 1); running single-device"),
+    (["--data_parallel"], 1, "WARNING: --sharding data requires >1 device (found 1); running single-device"),
+    (["--sharding", "tensor", "--model_parallel", "2"], 1,
+     "WARNING: --sharding tensor requires >1 device (found 1); running single-device"),
+    (["--data_parallel", "--sharding", "spatial"], 3, "spatial axis 3 must divide the deepest latent height 8"),
+    (["--sharding", "tensor", "--int8_conditioning"], 3, "tensor_parallel=3 must divide num_heads=2"),
+])
+def test_generate_cli_refuses_unported_flags(ws, gen_plain, capsys, monkeypatch, flags, world, said):
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    out = "flagged_" + "_".join(f.strip("-") for f in flags)
+    if world > 1:
+        with pytest.raises(SystemExit, match=said):
+            tgen.main(_gen_argv(ws, out, *flags))
+        assert not (ws[0] / out).exists()
+        return
+    tgen.main(_gen_argv(ws, out, *flags))
+    assert said in capsys.readouterr().out
+    np.testing.assert_array_equal(np.asarray(Image.open(ws[0] / out / "generated_image0.png")), gen_plain)
 
 
 def test_generate_cli_early_exits(ws):
@@ -229,15 +253,26 @@ def test_service_prepare_matches_jax(ws, seq, base, req, by_path):
         assert 0 <= got_seed < 2**32 and svc._prepare(body)[2] != got_seed
 
 
-# --int8_conditioning and --native_tokenizer run (the next test); the cases
-# that asserted their refusal now pair them with a sharding mode, which is
-# still refused
-@pytest.mark.parametrize("flags", [["--sharding", "tensor"], ["--sharding", "spatial", "--int8_conditioning"],
-                                   ["--sharding", "tensor", "--native_tokenizer"]])
-def test_serve_refuses_unported_flags(ws, flags):
-    with pytest.raises(SystemExit, match="ROADMAP.md, Queue 1") as e:
-        _service(ws[1], *flags)
-    assert str(e.value).startswith(f"--sharding {flags[1]} is not ported")
+# --sharding runs since parallel/ was ported (the cases asserted its
+# refusal): at one rank the JAX server's warning and a one-process service
+# that serves what the plain one serves; at WORLD_SIZE 3 a model the mode
+# cannot split exits with validate_tp's / validate_sp's message
+@pytest.mark.parametrize("flags,world,said", [
+    (["--sharding", "tensor"], 1, "WARNING: --sharding tensor requires >1 device (found 1); serving single-device"),
+    (["--sharding", "spatial", "--int8_conditioning"], 3, "spatial axis 3 must divide the deepest latent height 8"),
+    (["--sharding", "tensor", "--native_tokenizer"], 3, "tensor_parallel=3 must divide num_heads=2"),
+])
+def test_serve_refuses_unported_flags(ws, base, capsys, monkeypatch, flags, world, said):
+    monkeypatch.setenv("WORLD_SIZE", str(world))
+    if world > 1:
+        with pytest.raises(SystemExit, match=said):
+            _service(ws[1], *flags)
+        return
+    svc = _service(ws[1], *flags)
+    assert said in capsys.readouterr().out and svc.mesh is None
+    example, n, seed, key = svc._prepare(dict(base, num_samples=2, seed=6))
+    np.testing.assert_array_equal(svc.submit(example, n, seed, key)["images"],
+                                  _service(ws[1]).submit(example, n, seed, key)["images"])
 
 
 def test_serve_int8_conditioning_and_native_tokenizer(ws, base):
