@@ -84,6 +84,19 @@ Phases (each one fails the run on error):
      the limit; the service answers two requests over HTTP as a one-process
      service does, and SIGTERM at rank 0 stops every rank with exit 0. The
      kernel phase holds kernel 1 at the shapes a rank gives it there.
+ 11. parallel-train: on the same directory, two ranks of
+     `torch.distributed.run` run cli.train --recipe canonical (batch 8 as
+     4 x 2, 2 optimizer steps) under --shard_optimizer_state,
+     --tensor_parallel 2 and --fsdp (SIGTERM at one rank after step 1, then
+     resumed to step 2 from its checkpoint), the models loaded once a rank:
+     launches per rank and micro-step exactly one process's (kernels 2 and 3
+     on each rank's 4 heads under TP), the first diffusion micro-step's
+     gradient gathered against one process's on the same weights, batch and
+     draws, planted faults (summed data gradients, no f operator, unwritten
+     ZeRO-1 slices, stale FSDP shards) beyond their limits, the resumed
+     state equal to the state at SIGTERM bit for bit; s per optimizer step,
+     peak memory and collectives per micro-step per mode. The kernel phase
+     holds kernels 2 and 3 at a TP rank's share of the recipe's shapes.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON summary (`launches` from the 50-step generation or
 the training micro-steps, `serve_launches` from the serve phase's first
@@ -92,11 +105,13 @@ coalesced batch).
 
 from __future__ import annotations
 
+import collections
 import contextlib
 import dataclasses
 import json
 import os
 import re
+import signal
 import subprocess
 import sys
 import tempfile
@@ -484,12 +499,15 @@ def phase_kernels(source_tpu: dict):
     # the train phase's shapes: its UNet grad evals run batch 4 (4 rows, or
     # the face branch's 2 rows doubled by guidance), its face decode 2 rows;
     # then the canonical recipe's (the train-CLI phase): micro-batch 8, and
-    # the face branch's 4 rows doubled by guidance, its decode 4 rows
+    # the face branch's 4 rows doubled by guidance, its decode 4 rows; then
+    # one tensor-parallel rank's share of the recipe's micro-batch 8 at
+    # --tensor_parallel 2: 4 local heads (the parallel-train phase)
     lse_cases = [  # (kernel, B, S, H, d): the UNet's two levels, the VAE
         ("flash_sdpa_fwd_lse", 4, 4096, 8, 40), ("flash_sdpa_fwd_lse", 4, 1024, 8, 80),
         ("flash_stream_fwd_lse", 2, 4096, 1, 512),
         ("flash_sdpa_fwd_lse", 8, 4096, 8, 40), ("flash_sdpa_fwd_lse", 8, 1024, 8, 80),
         ("flash_stream_fwd_lse", 4, 4096, 1, 512),
+        ("flash_sdpa_fwd_lse", 8, 4096, 4, 40), ("flash_sdpa_fwd_lse", 8, 1024, 4, 80),
     ]
     for name, B, S, H, d in lse_cases:
         q, k, v = (torch.randn(B, S, H, d, generator=gen, device=dev).bfloat16() for _ in range(3))
@@ -506,8 +524,10 @@ def phase_kernels(source_tpu: dict):
             planted(name, "last 64 keys dropped",
                     fs.flash_fwd_lse(q, k[:, :-64], v[:, :-64]), want)
 
-    # the train phase's batch 4, then the recipe's micro-batch 8
-    for B, S, H, d in ((4, 4096, 8, 40), (4, 1024, 8, 80), (8, 4096, 8, 40), (8, 1024, 8, 80)):
+    # the train phase's batch 4, then the recipe's micro-batch 8, then its
+    # tensor-parallel rank's 4 local heads
+    for B, S, H, d in ((4, 4096, 8, 40), (4, 1024, 8, 80), (8, 4096, 8, 40), (8, 1024, 8, 80),
+                       (8, 4096, 4, 40), (8, 1024, 4, 80)):
         q, k, v = (torch.randn(B, S, H, d, generator=gen, device=dev).bfloat16() for _ in range(3))
         out, lse = fs.flash_fwd_lse_plain(q, k, v)
         g = torch.randn(B, S, H, d, generator=gen, device=dev).bfloat16()
@@ -2038,7 +2058,7 @@ def _plant(fault: str, models, spatial):
         layer = next(m for m in models.unet.modules() if isinstance(m, _FeedForward)).net[2]
         assert isinstance(layer, RowParallelLinear)
         comm = layer.comm
-        layer.comm = types.SimpleNamespace(all_reduce=lambda t: t)
+        layer.comm = types.SimpleNamespace(all_reduce=lambda t: t, size=comm.size)
         return lambda: setattr(layer, "comm", comm)
     if fault.startswith("conv_in"):
         conv = models.unet.conv_in
@@ -2142,6 +2162,29 @@ def _rank_generate(job: dict) -> dict:
     return rec
 
 
+@contextlib.contextmanager
+def _models_loaded_once(cache: dict):
+    """assembly.load_models memoised by its arguments for the jobs of one
+    rank: the first call with an argument set loads from the directory,
+    every call returns a deep copy (the CLIs cut and train what they get),
+    so a rank reads and converts the weights once per set."""
+    import copy
+
+    from photoverse_tpu_torch.models import assembly
+
+    real = assembly.load_models
+
+    def load(*a, **kw):
+        key = repr((a, sorted(kw.items())))
+        if key not in cache:
+            cache[key] = real(*a, **kw)
+        tok, models, lora = cache[key]
+        return tok, copy.deepcopy(models), lora
+
+    with mock.patch.object(assembly, "load_models", load):
+        yield cache
+
+
 def parallel_rank(jobs_path: str) -> int:
     """One rank of the parallel phase (started by torch.distributed.run):
     each job of the file in turn, cli.generate under --sharding in each
@@ -2163,7 +2206,7 @@ def parallel_rank(jobs_path: str) -> int:
     # the jobs share this process's group (the CLIs' close_mesh waits for the
     # end): re-opening it from the launcher's store would meet the keys the
     # last group left there
-    with mock.patch.object(pm, "close_mesh", lambda mesh: None):
+    with mock.patch.object(pm, "close_mesh", lambda mesh: None), _models_loaded_once({}):
         for job in spec["jobs"]:
             if job["cli"] == "generate":
                 results[job["mode"]] = _rank_generate(job)
@@ -2349,6 +2392,360 @@ def phase_parallel(smi: str, root: str, data: str):
     return ok
 
 
+# the parallel-train phase: cli.train --recipe canonical on two ranks that
+# share the card, under each multi-GPU training flag (the batch cut to 8 as
+# micro-batches of 4 x 2 accumulation steps, 2 optimizer steps; --fsdp is
+# stopped by SIGTERM at one rank after step 1 and resumed to step 2)
+PARALLEL_TRAIN_MODES = ("zero1", "tp", "fsdp")
+PARALLEL_TRAIN_FLAGS = {
+    "zero1": ["--shard_optimizer_state", "--max_microbatch_per_chip", "2"],
+    "tp": ["--tensor_parallel", "2", "--max_microbatch_per_chip", "4", "--samples_save_steps", "2"],
+    "fsdp": ["--fsdp", "--max_microbatch_per_chip", "2"],
+}
+# the planted fault of each mode's gradient check (run on the first
+# diffusion micro-step's inputs, before the counted step), and the two that
+# show after an update
+PARALLEL_TRAIN_GRAD_FAULTS = {
+    "zero1": ("the data group's gradients summed, not averaged",),
+    "tp": ("the column-parallel inputs without the backward sum (no f operator)",),
+    "fsdp": (),
+}
+# the sharded run's gradient of the first diffusion micro-step (gathered
+# whole, the data group's mean) against one process's on the same weights,
+# batch and draws, in bf16: the relative L2 distance per trainable group,
+# held at the train phase's kernels-against-plain limit (the ranks' bf16
+# products sum over other groupings of rows and heads)
+PARALLEL_GRAD_RTOL = TRAIN_GRAD_RTOL
+# seconds the two ranks may take for the three runs and the resume
+PARALLEL_TRAIN_TIMEOUT_S = 600
+
+
+def _whole_grads(layout, grads, summed: bool = False):
+    """A rank's micro-step gradients made whole on every rank: the data
+    group's mean (or, planted, its sum), the shards gathered."""
+    acc = {k: g.detach().clone() for k, g in grads.items()}
+    layout.reduce_grads(acc)
+    if summed:
+        for g in acc.values():
+            g.mul_(layout.mesh.dp)
+    return {k: layout.gather(k, v) for k, v in acc.items()}
+
+
+def _group_rel(got: dict, want: dict) -> dict:
+    """Relative L2 distance per trainable group (text_adapter,
+    image_adapter, unet)."""
+    import torch
+
+    out = {}
+    for group in sorted({k.split(".", 1)[0] for k in want}):
+        keys = [k for k in want if k.startswith(group + ".")]
+        num = torch.sqrt(sum((got[k].float() - want[k].float()).square().sum() for k in keys))
+        den = torch.sqrt(sum(want[k].float().square().sum() for k in keys))
+        out[group] = float(num / den)
+    return out
+
+
+def _rank_train(job: dict, loaded: dict, memo: dict) -> dict:
+    """cli.train's main on this rank with its micro-steps watched: the
+    launches of each, the first diffusion micro-step's gradient made whole
+    (and, on its inputs before the counted call, each planted fault's), and
+    on rank 0 one process's gradient on the same weights (the models as
+    loaded: `loaded` holds the one bundle every run loads), batch and
+    draws."""
+    import copy
+
+    import torch
+
+    from photoverse_tpu_torch.ckpt import checkpoint as ck
+    from photoverse_tpu_torch.cli import train as cli
+    from photoverse_tpu_torch.engine import training as tr
+    from photoverse_tpu_torch.models import layers, unet
+    from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.parallel import fsdp, mesh as pm, training as ptr
+
+    rec = {"counts": [], "collectives": []}
+    first = {}
+    moved = {"n": 0}
+    real_call = tr.TrainStep.__call__
+    calls = collections.Counter()
+    real_reduce, real_gather = pm.Comm.all_reduce, pm.Comm.all_gather
+
+    def counted(fn, kind):
+        def run(self, t, *a):
+            calls[kind] += 1
+            calls[kind + "_bytes"] += t.numel() * t.element_size()
+            return fn(self, t, *a)
+        return run
+
+    def fresh(d):
+        """The draws with a new dropout generator in the state the CLI's began in."""
+        out = {k: (torch.Generator(device=v.device).manual_seed(v.initial_seed()) if isinstance(v, torch.Generator)
+                   else fresh(v) if isinstance(v, dict) else v) for k, v in d.items()}
+        return out
+
+    def call(self, batch, draws):
+        layout = self.layout
+        if "face_pixel_values" not in batch and not first.get("batch") and not job.get("resume_of"):
+            # the first diffusion micro-step's inputs, kept for the checks after the run
+            first.update(step=self, batch=batch, draws=fresh(draws), cfg=self.cfg)
+        torch.cuda.synchronize()
+        _build.reset_launch_counts()
+        calls.clear()
+        out = real_call(self, batch, draws)
+        torch.cuda.synchronize()
+        rec["counts"].append(("face" if "face_pixel_values" in batch else "diffusion", dict(_build.launch_counts)))
+        rec["collectives"].append(dict(calls))
+        moved["n"] += 1
+        if job.get("sigterm_at") == moved["n"] and layout.mesh.rank == 1:
+            signal.raise_signal(signal.SIGTERM)  # one rank only: the CLI stops every rank at this step
+        return out
+
+    resumed = {}
+    real_shard = ptr.shard_training
+
+    def shard(models, optimizer, mesh, **kw):
+        new = real_shard(models, optimizer, mesh, **kw)
+        if job.get("resume_of"):  # the resumed state, re-cut, gathered whole
+            resumed.update(snap=ck.host_save_snapshot(models, new.layout), opt=ck.optax_state(new))
+        else:  # this rank's trainables before any step (set up, before the CLI's first timed step)
+            first["initial"] = {k: p.detach().clone() for k, p in new.params.items()}
+        return new
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with mock.patch.object(tr.TrainStep, "__call__", call), mock.patch.object(ptr, "shard_training", shard), \
+            mock.patch.object(pm.Comm, "all_reduce", counted(real_reduce, "all_reduce")), \
+            mock.patch.object(pm.Comm, "all_gather", counted(real_gather, "all_gather")):
+        models, opt, step = cli.main(job["argv"])
+    rec.update(main_seconds=time.perf_counter() - t0, step=step,
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30)
+    layout = opt.layout
+    mesh = layout.mesh
+    if job["mode"] == "fsdp":  # the state at SIGTERM, as the checkpoint holds it
+        memo["fsdp"] = dict(snap=ck.host_save_snapshot(models, layout), opt=ck.optax_state(opt))
+    if job.get("resume_of") and mesh.rank == 0:
+        def flat(t, where=""):
+            if isinstance(t, dict):
+                for k in sorted(t):
+                    yield from flat(t[k], f"{where}/{k}")
+            else:
+                yield where, np.asarray(t)
+
+        a, b = dict(flat(memo.pop(job["resume_of"]))), dict(flat(resumed))
+        rec["resume_arrays"] = len(a)
+        rec["resume_same"] = set(a) == set(b) and all(a[k].dtype == b[k].dtype and np.array_equal(a[k], b[k])
+                                                      for k in a)
+    if job["mode"] == "zero1":
+        # ZeRO-1 keeps the masters whole and equal on every data rank; a rank
+        # that writes no other rank's updated slice leaves them apart
+        def spread():
+            flat = torch.cat([p.detach().reshape(-1) for p in opt.params.values()])
+            every = mesh.data_comm.all_gather(flat[None], 0)
+            return float((every - flat[None]).abs().max())
+
+        rec["zero1_spread"] = spread()
+
+        def no_write(self, params, slices):  # the planted fault: gathered, never written
+            self.mesh.data_comm.all_gather(torch.cat([t.reshape(-1) for t in slices.values()]), 0)
+
+        with mock.patch.object(ptr.TrainLayout, "gather_slices", no_write):
+            g = {k: torch.randn_like(p) * 1e-3 for k, p in opt.params.items()}
+            for _ in range(opt.accum):
+                opt.step(g)
+        rec["zero1_fault_spread"] = spread()
+    if job["mode"] == "fsdp" and "batch" in first:
+        # the forward on the shards as they are, twice, and on their values
+        # from before the update (the planted stale shard)
+        step_fn = tr.TrainStep(models, first["cfg"], opt)
+        old = {id(p): first["initial"][k] for k, p in opt.params.items()}
+        real_g = fsdp.gather_shard
+
+        def loss(stale=False):
+            patch = mock.patch.object(fsdp, "gather_shard", lambda t, comm, dim: real_g(
+                old.get(id(t), t), comm, dim)) if stale else contextlib.nullcontext()
+            with patch, torch.no_grad():
+                return float(step_fn.loss_fn(first["batch"], fresh(first["draws"]))[0])
+
+        rec["fsdp_loss"] = [loss(), loss(), loss(stale=True)]
+    if "batch" in first:
+        # the first diffusion micro-step again, after the run and outside its
+        # timing: the trainables put back to their values before any step,
+        # the gradient made whole, and each planted fault's on the same inputs
+        step_first = first["step"]
+        with torch.no_grad():
+            for k, p in opt.params.items():
+                p.copy_(first["initial"][k])
+        batch = first["batch"]
+        _, g = step_first.compute_grads(batch, fresh(first["draws"]))
+        first["sound"] = _whole_grads(layout, g)
+        first["faults"] = {}
+        for fault in job["grad_faults"]:
+            with contextlib.ExitStack() as stack:
+                if "no f operator" in fault:
+                    for m in (unet, layers):
+                        stack.enter_context(mock.patch.object(m, "copy_to_model", lambda x, comm: x))
+                _, g = step_first.compute_grads(batch, fresh(first["draws"]))
+            first["faults"][fault] = _whole_grads(layout, g, summed="summed" in fault)
+        del g
+        first["batch"] = {k: mesh.data_comm.all_gather(v, 0) for k, v in batch.items()}
+    if mesh.rank == 0 and "sound" in first:
+        # one process on the same weights (the models as loaded), batch and draws
+        (_, pristine, _), = loaded.values()
+        one = copy.deepcopy(pristine)
+        tr.init_train_state(one, first["cfg"])
+        _, g1 = tr.TrainStep(one, first["cfg"]).compute_grads(first["batch"], fresh(first["draws"]))
+        rec["grad_rel"] = _group_rel(first["sound"], g1)
+        rec["fault_rel"] = {f: _group_rel(g, g1) for f, g in first["faults"].items()}
+        rec["rows"] = int(first["batch"]["pixel_values"].shape[0])
+        del one, g1
+    del models, opt
+    torch.cuda.empty_cache()
+    return rec
+
+
+def parallel_train_rank(jobs_path: str) -> int:
+    """One rank of the parallel-train phase (started by
+    torch.distributed.run): cli.train in each mode, the models loaded from
+    the directory once (later runs take a copy of the loaded bundle)."""
+    import torch
+    import torch.distributed as dist
+
+    from photoverse_tpu_torch.parallel import mesh as pm
+
+    torch.backends.cuda.matmul.allow_tf32 = False  # as the one-process run (phase_device)
+    torch.backends.cudnn.allow_tf32 = False
+    with open(jobs_path) as f:
+        spec = json.load(f)
+    rank = int(os.environ["RANK"])
+    results, memo, loaded = {}, {}, {}
+    with mock.patch.object(pm, "close_mesh", lambda mesh: None), _models_loaded_once(loaded):
+        for job in spec["jobs"]:
+            results[job["name"]] = _rank_train(job, loaded, memo)
+            with open(os.path.join(spec["dir"], f"train_rank{rank}.json"), "w") as f:
+                json.dump(results, f)
+    dist.destroy_process_group()
+    return 0
+
+
+def phase_parallel_train(smi: str, root: str, data: str):
+    """cli.train --recipe canonical on two ranks that share the card under
+    --shard_optimizer_state, --tensor_parallel 2 and --fsdp (stopped by
+    SIGTERM after step 1, resumed to step 2): launches per rank and
+    micro-step, the gradient against one process's, the planted faults, the
+    resume against the saved state bit for bit."""
+    from photoverse_tpu_torch.models.unet import UNetConfig
+
+    ok = True
+
+    def check(good, what):
+        nonlocal ok
+        ok &= bool(good)
+        log(f"parallel-train: {what} {'OK' if good else 'FAIL'}")
+
+    n_flash = _flash_layers(UNetConfig(), 64)
+    face_steps = 10
+    want = {kind: _train_counts(n_flash, face_steps, kind == "face", remat=True) for kind in ("face", "diffusion")}
+    with tempfile.TemporaryDirectory() as tmp:
+        base = ["--recipe", "canonical", "--pretrained_model_name_or_path", root, "--data_root_path", data,
+                "--allow_random_face_model", "--seed", "0", "--report_to", "none", "--train_batch_size", "8",
+                "--max_train_steps", "2", "--checkpoint_save_steps", "1000", "--samples_save_steps", "1000",
+                "--dataloader_num_workers", "2"]
+        out = {m: os.path.join(tmp, m) for m in (*PARALLEL_TRAIN_MODES, "fsdp_resumed")}
+        jobs = [dict(name=m, mode=m, grad_faults=PARALLEL_TRAIN_GRAD_FAULTS[m],
+                     sigterm_at=2 if m == "fsdp" else None,
+                     argv=base + PARALLEL_TRAIN_FLAGS[m] + ["--output_dir", out[m]]) for m in PARALLEL_TRAIN_MODES]
+        jobs.append(dict(name="fsdp_resumed", mode="fsdp_resumed", grad_faults=(), resume_of="fsdp",
+                         argv=base + PARALLEL_TRAIN_FLAGS["fsdp"] + [
+                             "--output_dir", out["fsdp_resumed"],
+                             "--resume_from", os.path.join(out["fsdp"], "photoverse_000001.msgpack")]))
+        jobs_path = os.path.join(tmp, "train_jobs.json")
+        with open(jobs_path, "w") as f:
+            json.dump({"dir": tmp, "jobs": jobs}, f)
+        log_path = os.path.join(tmp, "train_ranks.log")
+        here = os.path.dirname(os.path.abspath(__file__))
+        t0 = time.perf_counter()
+        with open(log_path, "w") as f:
+            proc = subprocess.Popen(
+                [sys.executable, "-m", "torch.distributed.run", "--standalone", "--nproc_per_node", "2",
+                 os.path.abspath(__file__), "--parallel-train-rank", jobs_path],
+                cwd=here, stdout=f, stderr=subprocess.STDOUT, start_new_session=True,
+                env=dict(os.environ, OMP_NUM_THREADS="4"))
+        try:
+            proc.wait(timeout=PARALLEL_TRAIN_TIMEOUT_S)
+        except subprocess.TimeoutExpired:
+            check(False, f"the ranks ended within {PARALLEL_TRAIN_TIMEOUT_S}s")
+        finally:
+            if proc.poll() is None:
+                os.killpg(proc.pid, signal.SIGKILL)
+                proc.wait()
+        wall = time.perf_counter() - t0
+        with open(log_path) as f:
+            ranks_log = f.read()
+        check(proc.returncode == 0, f"torch.distributed.run --nproc_per_node 2: exit {proc.returncode} after "
+                                    f"{wall:.1f}s")
+        if proc.returncode != 0:
+            log(ranks_log[-8000:])
+        ranks = []
+        for r in range(2):
+            with contextlib.suppress(OSError, ValueError), open(os.path.join(tmp, f"train_rank{r}.json")) as f:
+                ranks.append(json.load(f))
+        names = [j["name"] for j in jobs]
+        if len(ranks) != 2 or any(sorted(rk) != sorted(names) for rk in ranks):
+            check(False, f"every rank ran every run: {[sorted(rk) for rk in ranks]}")
+            return ok
+        for line in re.findall(r"\[parallel\] (?:backend|training) .*", ranks_log)[:5]:
+            log(f"parallel-train: {line}")
+        for name in names:
+            r0, r1 = ranks[0][name], ranks[1][name]
+            steps = []
+            with contextlib.suppress(OSError), open(os.path.join(out[name], "metrics.jsonl")) as f:
+                steps = [r for r in map(json.loads, f) if "loss_mle" in r]
+            want_steps = [1] if name == "fsdp" else [2] if name == "fsdp_resumed" else [1, 2]
+            finite = all(np.isfinite(r[k]) for r in steps for k in ("loss_mle", "loss_face", "step_time_s"))
+            wrong = [(i, kind, c) for rk in (r0, r1) for i, (kind, c) in enumerate(rk["counts"]) if c != want[kind]]
+            kinds = [k for k, _ in r0["counts"]]
+            check([r["step"] for r in steps] == want_steps and finite and not wrong
+                  and kinds == ["diffusion", "face"] * len(want_steps),
+                  f"--{name}: steps {[r['step'] for r in steps]}, s per optimizer step "
+                  f"{[round(r['step_time_s'], 4) for r in steps]}, loss_mle "
+                  f"{[round(r['loss_mle'], 6) for r in steps]}, the CLI's main {r0['main_seconds']:.1f} / "
+                  f"{r1['main_seconds']:.1f} s, peak {r0['peak_gib']:.2f} / {r1['peak_gib']:.2f} GiB per rank "
+                  f"({smi}); {len(kinds)} micro-steps per rank, launches per micro-step each rank: diffusion "
+                  f"{want['diffusion']}, face {want['face']}" + (f"; first wrong {wrong[0]}" if wrong else ""))
+            log(f"parallel-train: --{name} collectives per micro-step (rank 0): "
+                + "; ".join(f"{kind} {c.get('all_reduce', 0)} all_reduce {c.get('all_reduce_bytes', 0) / 2**20:.1f} "
+                            f"MiB, {c.get('all_gather', 0)} all_gather {c.get('all_gather_bytes', 0) / 2**20:.1f} MiB"
+                            for (kind, _), c in zip(r0["counts"], r0["collectives"])))
+            if "grad_rel" in r0:
+                rel = r0["grad_rel"]
+                check(max(rel.values()) <= PARALLEL_GRAD_RTOL,
+                      f"--{name}: the first diffusion micro-step's gradient (rows {r0['rows']}, gathered whole) "
+                      f"against one process on the same weights, batch and draws, relative L2 per group "
+                      f"{ {k: round(v, 6) for k, v in rel.items()} } (limit {PARALLEL_GRAD_RTOL})")
+                for fault, frel in r0["fault_rel"].items():
+                    check(max(frel.values()) > PARALLEL_GRAD_RTOL,
+                          f"--{name}: planted fault, {fault}: {({k: round(v, 6) for k, v in frel.items()})}, "
+                          f"above the limit")
+        z = [ranks[r]["zero1"] for r in range(2)]
+        check(all(x["zero1_spread"] == 0.0 < x["zero1_fault_spread"] for x in z),
+              f"--shard_optimizer_state: the f32 masters after the run equal on both data ranks (max |diff| "
+              f"{[x['zero1_spread'] for x in z]}); planted fault, a rank that writes no other rank's updated slice: "
+              f"{[x['zero1_fault_spread'] for x in z]}, apart")
+        fl = [ranks[r]["fsdp"]["fsdp_loss"] for r in range(2)]
+        check(all(abs(c - a) > abs(b - a) for a, b, c in fl),
+              f"--fsdp after step 1: the diffusion loss on the shards as they are, twice {[x[:2] for x in fl]}; "
+              f"planted fault, the shards' values from before the update: {[x[2] for x in fl]}, further from the "
+              f"first than the repeat")
+        res = ranks[0]["fsdp_resumed"]
+        check(res.get("resume_same") and res.get("resume_arrays", 0) > 100,
+              f"--fsdp resumed from photoverse_000001.msgpack on fresh runs of the CLI: the state re-cut to the "
+              f"ranks and gathered again ({res.get('resume_arrays')} arrays: trainables, AdamW moments and counts, "
+              f"the accumulation window) equals the state at SIGTERM bit for bit")
+        log("parallel-train: two ranks share one H100 and gloo moves every collective through the host: these "
+            "times are the collectives' cost, not a multi-GPU speed-up")
+    return ok
+
+
 # file:line of each TPU kernel's pallas_call in the JAX package
 TPU_KERNELS = {
     "flash_sdpa": "photoverse_tpu/ops/flash_sdpa.py:154",
@@ -2362,30 +2759,49 @@ SERVING_KERNELS = ("flash_sdpa", "flash_sdpa_stream", "fused_cross_ff")
 
 
 def main() -> int:
+    t_start = time.perf_counter()
+    marks = [("start", t_start)]
+
+    def mark(name):  # each phase's wall time, for the log's last lines
+        marks.append((name, time.perf_counter()))
+
     smi = phase_device()
     import torch
 
     phase_build()
     rows = phase_kernels(TPU_KERNELS)
+    mark("device, build, kernels")
     models = serving_models()
     results, pipe_ok = phase_pipeline(models)
+    mark("pipeline")
     samplers_ok = phase_samplers(models)
+    mark("samplers")
     serve_launches, serve_ok = phase_serve(models)
+    mark("serve")
     del models
     train_launches, train_ok = phase_train()
+    mark("train")
     with tempfile.TemporaryDirectory() as tmp:
         root, data, tokenizer = write_user_files(tmp)
         cli_ok = phase_train_cli(smi, root, data, tokenizer)
+        mark("user files, train-cli")
         identity_ok = phase_identity(smi, root, data)
+        mark("identity")
         torch.cuda.empty_cache()  # the ranks of the next phase share this card
         parallel_ok = phase_parallel(smi, root, data)
+        mark("parallel")
+        torch.cuda.empty_cache()
+        parallel_train_ok = phase_parallel_train(smi, root, data)
+        mark("parallel-train")
+    log("phase seconds: " + ", ".join(f"{name} {b - a:.1f}" for (_, a), (name, b) in zip(marks, marks[1:]))
+        + f"; total {time.perf_counter() - t_start:.1f}")
     # each kernel's launches from the run of the path it lies on: the
     # 50-step generation, or the four training micro-steps; the serving
     # kernels also from the server's first coalesced batch
     launches = {n: results["g1"]["counts"].get(n, 0) if n in SERVING_KERNELS else train_launches.get(n, 0)
                 for n in TPU_KERNELS}
     ok = (all(r["ok"] for r in rows) and pipe_ok and samplers_ok and serve_ok and train_ok and cli_ok and identity_ok
-          and parallel_ok
+          and parallel_ok and parallel_train_ok
           and all(v > 0 for v in launches.values())
           and all(serve_launches.get(n, 0) > 0 for n in SERVING_KERNELS))
     summary = {"kernels": []}
@@ -2414,4 +2830,6 @@ def main() -> int:
 if __name__ == "__main__":
     if sys.argv[1:2] == ["--parallel-rank"]:  # a rank of the parallel phase
         sys.exit(parallel_rank(sys.argv[2]))
+    if sys.argv[1:2] == ["--parallel-train-rank"]:  # a rank of the parallel-train phase
+        sys.exit(parallel_train_rank(sys.argv[2]))
     sys.exit(main())

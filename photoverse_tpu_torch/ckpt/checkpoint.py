@@ -41,6 +41,7 @@ __all__ = [
     "partition_params",
     "combine_params",
     "TRAINABLE_UNET_LEAVES",
+    "snapshot_keys",
     "host_save_snapshot",
     "optax_state",
     "load_optax_state",
@@ -82,15 +83,25 @@ def _host(t: torch.Tensor) -> np.ndarray:
     return t.detach().to("cpu", torch.float32, copy=True).numpy()
 
 
-def host_save_snapshot(models) -> Dict[str, np.ndarray]:
+def snapshot_keys(models) -> list:
+    """The parameters a checkpoint snapshot holds: the trainable set plus
+    the frozen attn2 parameters of the UNet."""
+    trainable, frozen = partition_params(models)
+    return list(trainable) + [k for k in frozen if k.startswith("unet.") and ".attn2." in k]
+
+
+def host_save_snapshot(models, layout=None) -> Optional[Dict[str, np.ndarray]]:
     """Host f32 copy of what `save_progress` and `save_progress_pt` write:
     the trainable set plus the frozen attn2 parameters of the UNet (the
     `.pt` exports the base q/k/v beside the LoRA factors). The rest of the
-    frozen backbone stays on the device."""
+    frozen backbone stays on the device. With a multi-rank `layout`
+    (parallel.training.TrainLayout) every rank takes part in gathering the
+    shards and rank 0 receives the whole leaves (the others None)."""
+    if layout is not None:
+        return layout.host_snapshot(models, snapshot_keys(models))
     trainable, frozen = partition_params(models)
-    snap = {k: _host(v) for k, v in trainable.items()}
-    snap.update({k: _host(v) for k, v in frozen.items() if k.startswith("unet.") and ".attn2." in k})
-    return snap
+    params = {**trainable, **frozen}
+    return {k: _host(params[k]) for k in snapshot_keys(models)}
 
 
 def _trainable_names(snapshot: Dict) -> list:
@@ -118,21 +129,20 @@ def optax_state(optimizer) -> Dict:
     state photoverse_tpu/engine/training.py builds: chain(clip_groups_tx,
     adamw) = {"0": {}, "1": {"0": {count, mu, nu}, "1": {}, "2": {count}}},
     wrapped in MultiSteps ({mini_step, gradient_step, inner_opt_state,
-    acc_grads, skip_state}) when it accumulates. Host numpy arrays."""
-    mu, nu = {}, {}
-    for k, p in optimizer.params.items():
-        st = optimizer.adamw.state.get(p, {})
-        mu[k] = _host(st["exp_avg"]) if st else np.zeros(tuple(p.shape), np.float32)
-        nu[k] = _host(st["exp_avg_sq"]) if st else np.zeros(tuple(p.shape), np.float32)
-        if st and int(st["step"]) != optimizer.updates:
-            raise RuntimeError(f"{k}: AdamW step {int(st['step'])} != {optimizer.updates} updates")
+    acc_grads, skip_state}) when it accumulates. Host numpy arrays, whole
+    leaves: in a multi-rank run every rank takes part in gathering the
+    shards and rank 0 receives the state (the others None)."""
+    state = optimizer.host_state()
+    if state is None:
+        return None
+    mu, nu, acc = state
     chain = {"0": {}, "1": {"0": {"count": _i32(optimizer.updates), "mu": _by_path(mu), "nu": _by_path(nu)},
                             "1": {}, "2": {"count": _i32(optimizer.updates)}}}
     if optimizer.accum == 1:
         return chain
     return {"mini_step": _i32(optimizer.mini_step), "gradient_step": _i32(optimizer.updates),
             "inner_opt_state": chain,
-            "acc_grads": _by_path({k: _host(v) for k, v in optimizer.acc.items()}),
+            "acc_grads": _by_path(acc),
             "skip_state": {}}
 
 

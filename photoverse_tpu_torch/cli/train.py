@@ -1,12 +1,34 @@
 """Training CLI of the PyTorch port: the flags of photoverse_tpu/cli/train.py,
-on one GPU (or the CPU with --cpu).
+on one GPU or several ranks (or the CPU with --cpu).
 
 Usage:
   python -m photoverse_tpu_torch.cli.train --recipe canonical \\
       --pretrained_model_name_or_path /path/to/sd15 --data_root_path data \\
       --face_model_weights arcface.pt --output_dir results
+  python -m torch.distributed.run --nproc_per_node N -m photoverse_tpu_torch.cli.train ... \\
+      [--tensor_parallel M] [--fsdp | --shard_optimizer_state]
 
-The flow of the JAX CLI without its mesh: the train batch split into
+Several ranks (parallel/training.py): the launcher's ranks form a
+(N / M data) x (M model) mesh. Each data rank loads its rows of every
+micro-batch (the loader's host_slice; its template stream keyed on the
+data rank, so the model ranks of one data rank see the same batch) and its
+face sub-batch from them, and makes the whole micro-batch's draws from the
+one shared generator, keeping its rows; gradients are averaged over the
+data ranks once per window; --tensor_parallel M shards the UNet's
+attention and feed-forward over M ranks (flash through the sharded
+wrapper: kernels 2 and 3 on each rank's heads); --fsdp keeps each rank's
+shard of every large parameter (ZeRO-3), --shard_optimizer_state each
+rank's slice of the AdamW state (ZeRO-1). Checkpoints gather on every rank
+and rank 0 writes the files one process writes; metrics.jsonl, the sample
+grids and the profile are rank 0's. SIGTERM: every rank stops at the same
+optimizer step (the flag is combined over the ranks at each step). With
+one rank --fsdp and --shard_optimizer_state change nothing, as in the JAX
+CLI. Refused before any group opens: --tensor_parallel that does not
+divide the ranks (a one-process run included: the JAX CLI shrinks its
+device mesh, but a rank here is a process that must take part) and a
+micro-batch that the data ranks do not divide.
+
+The flow of the JAX CLI: the train batch split into
 accumulation micro-steps when it exceeds --max_microbatch_per_chip, remat,
 the face loss (ArcFace or FaceNet), the fused face-accumulation window (the face
 branch on each window's last micro-step, wider and weighted, through a
@@ -17,9 +39,8 @@ checkpoints (optionally on a background writer), a checkpoint at the next
 optimizer-step boundary on SIGTERM or SIGINT, sample grids with the
 in-train face_similarity metric, and a torch.profiler window.
 
-Refused with a message, never ignored: --fsdp, --tensor_parallel > 1,
---shard_optimizer_state (multi-GPU training, ROADMAP.md Queue 1), --push_to_hub (needs
-the network) and --mixed_precision fp16 (the JAX CLI refuses it too).
+Refused with a message, never ignored: --push_to_hub (needs the network)
+and --mixed_precision fp16 (the JAX CLI refuses it too).
 """
 
 from __future__ import annotations
@@ -59,10 +80,6 @@ RECIPE_PRESETS = {
         uint8_transfer=True,
     ),
 }
-
-UNPORTED = ("is not ported to photoverse_tpu_torch yet (ROADMAP.md, Queue 1: the training half of "
-            "`parallel/`); run without it")
-
 
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(description="PhotoVerse training (PyTorch port)")
@@ -134,9 +151,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--checkpoint_format", type=str, default="native", choices=["native", "pt", "both"])
     p.add_argument("--async_checkpointing", action=argparse.BooleanOptionalAction, default=False,
                    help="Write checkpoints on a background thread")
-    p.add_argument("--shard_optimizer_state", action="store_true", help="Multi-GPU; not ported (refused)")
-    p.add_argument("--fsdp", action="store_true", help="Multi-GPU; not ported (refused)")
-    p.add_argument("--tensor_parallel", type=int, default=1, help="Multi-GPU; not ported (refused when > 1)")
+    p.add_argument("--shard_optimizer_state", action="store_true",
+                   help="ZeRO-1: each data rank holds and updates its slice of the AdamW state")
+    p.add_argument("--fsdp", action="store_true",
+                   help="ZeRO-3: each data rank keeps its shard of every large parameter and its moments")
+    p.add_argument("--tensor_parallel", type=int, default=1,
+                   help="Ranks per model replica (Megatron tensor parallelism of the UNet)")
     p.add_argument("--flash_attention", action=argparse.BooleanOptionalAction, default=False,
                    help="The hand-written flash attention kernels (on the GPU)")
     p.add_argument("--remat", action=argparse.BooleanOptionalAction, default=False,
@@ -173,15 +193,6 @@ def check_args(args):
 
 def refuse_unported(args) -> None:
     """Exit on a flag whose code the port lacks, naming the flag."""
-    asked = []
-    if args.fsdp:
-        asked.append("--fsdp")
-    if args.tensor_parallel > 1:
-        asked.append(f"--tensor_parallel {args.tensor_parallel}")
-    if args.shard_optimizer_state:
-        asked.append("--shard_optimizer_state")
-    if asked:
-        raise SystemExit(f"{', '.join(asked)} {UNPORTED}")
     if args.push_to_hub:
         raise SystemExit("--push_to_hub needs the network, which the PyTorch port does not use; "
                          "upload the checkpoints in output_dir yourself")
@@ -206,6 +217,30 @@ def accumulation_plan(train_batch_size: int, gradient_accumulation_steps: int, a
                     accum, micro_batch = cand, micro
                     break
     return accum, micro_batch
+
+
+def mesh_plan(args, world: int) -> Tuple[int, int, int, int]:
+    """(dp, mp, accumulation steps, micro-batch) for the launcher's
+    `world` ranks, checked before any process group opens: --tensor_parallel
+    must divide the ranks and the head count, and the data ranks the
+    micro-batch (the JAX CLI's host_batch_slice)."""
+    mp = args.tensor_parallel
+    if mp < 1 or world % mp:
+        raise SystemExit(f"--tensor_parallel {mp} must divide the device count {world} (the ranks the launcher "
+                         f"started; launch them with python -m torch.distributed.run --nproc_per_node N)")
+    dp = world // mp
+    if mp > 1:
+        from photoverse_tpu_torch.models.assembly import model_configs
+
+        heads = model_configs(args.pretrained_model_name_or_path)[0].num_heads
+        if heads % mp:
+            raise SystemExit(f"tensor_parallel={mp} must divide num_heads={heads}")
+    accum, micro_batch = accumulation_plan(args.train_batch_size, args.gradient_accumulation_steps,
+                                           args.auto_grad_accum, args.max_microbatch_per_chip, n_mesh=dp)
+    if micro_batch % dp:
+        raise SystemExit(f"global batch {micro_batch} not divisible by process count {dp} (the data ranks: "
+                         f"{world} ranks / --tensor_parallel {mp})")
+    return dp, mp, accum, micro_batch
 
 
 def face_rows(sample_ratio: float, micro_batch: int, accum: int, fuse_face: bool) -> int:
@@ -268,7 +303,9 @@ def _save_samples(args, models, tokenizer, solver, batch, step, writer, latent_s
     output_dir/{step:05d}.jpg, and with the face loss the face_similarity
     of the inputs and the generations. The generation batch is the first
     min(batch, 16) rows; with --use_random_prompts the prompt is the fixed
-    "a photo of {}"."""
+    "a photo of {}". With sharded parameters every rank generates from its
+    rows (the collectives need every rank); a rank without a `writer`
+    writes nothing."""
     import torch
 
     from photoverse_tpu_torch.data.preprocessing import CLIP_MEAN, CLIP_STD
@@ -304,21 +341,21 @@ def _save_samples(args, models, tokenizer, solver, batch, step, writer, latent_s
     if face_metric is not None:
         with torch.no_grad():
             logs["face_similarity"] = float(face_metric(torch.as_tensor(example["pixel_values"], device=dev), gen))
-    gen = gen.float().cpu().numpy()
-    grid_data = [
-        ("Input Images", [to_pil(denormalize(im)) for im in batch["pixel_values"][:n]]),
-        ("Condition Images", [to_pil(denormalize_clip(im)).resize((args.resolution, args.resolution))
-                              for im in batch["pixel_values_clip"][:n]]),
-        (grid_prompt, [to_pil(denormalize(im)) for im in gen[:n]]),
-    ]
+    rows = [(grid_prompt, gen)]
     if args.save_samples_with_various_prompts:
         for prompt in EVAL_PROMPTS:
             ex = prepare_prompt(tokenizer, prompt, "*", num_of_samples=n)
             ex_n = {"pixel_values": example["pixel_values"][:n], "pixel_values_clip": example["pixel_values_clip"][:n],
                     "text_input_ids": ex["text_input_ids"],
                     "concept_placeholder_idx": ex["concept_placeholder_idx"].reshape(-1)}
-            g = generate(ex_n, uncond[:n]).float().cpu().numpy()
-            grid_data.append((prompt, [to_pil(denormalize(im)) for im in g]))
+            rows.append((prompt, generate(ex_n, uncond[:n])))
+    if writer is None:
+        return
+    grid_data = [
+        ("Input Images", [to_pil(denormalize(im)) for im in batch["pixel_values"][:n]]),
+        ("Condition Images", [to_pil(denormalize_clip(im)).resize((args.resolution, args.resolution))
+                              for im in batch["pixel_values_clip"][:n]]),
+    ] + [(label, [to_pil(denormalize(im)) for im in g.float().cpu().numpy()[:n]]) for label, g in rows]
     path = os.path.join(args.output_dir, f"{step:05d}.jpg")
     save_images_grid(grid_data, path)
     if logs:
@@ -381,11 +418,27 @@ class _Profiler:
 def main(argv=None, dataset=None):
     """Train. `dataset` replaces the dataset the flags describe (an object
     with __len__ and example(idx, rng), as CustomDataset). Returns
-    (models, optimizer, optimizer steps done)."""
+    (models, optimizer, optimizer steps done); on several ranks, this
+    rank's shards."""
     args = parse_args(argv)
     check_args(args)
     refuse_unported(args)
+    from photoverse_tpu_torch.parallel.mesh import close_mesh, open_mesh, world_from_env
 
+    world = world_from_env()[1]
+    dp, mp, accum, micro_batch = mesh_plan(args, world)
+    if world == 1:
+        if args.fsdp or args.shard_optimizer_state:
+            print("--fsdp / --shard_optimizer_state with one data rank: the run is one process's", flush=True)
+        return _train(args, dataset, None, accum, micro_batch)
+    mesh = open_mesh(dp, mp, args.cpu)
+    try:
+        return _train(args, dataset, mesh, accum, micro_batch)
+    finally:
+        close_mesh(mesh)
+
+
+def _train(args, dataset, mesh, accum: int, micro_batch: int):
     import torch
 
     from photoverse_tpu_torch.cli.generate import pick_device
@@ -401,10 +454,14 @@ def main(argv=None, dataset=None):
     from photoverse_tpu_torch.data.dataset import BatchLoader, CustomDataset, CustomDatasetWithMasks
     from photoverse_tpu_torch.engine.training import TrainConfig, TrainStep, init_train_state, make_draws
     from photoverse_tpu_torch.models.assembly import load_models
+    from photoverse_tpu_torch.parallel.mesh import host_batch_slice, shard_batch
     from photoverse_tpu_torch.utils.metrics import MetricsWriter
 
-    device = pick_device(args.cpu)
-    on_card = device == "cuda"
+    device = mesh.device if mesh is not None else pick_device(args.cpu)
+    on_card = torch.device(device).type == "cuda"
+    lead = mesh is None or mesh.rank == 0  # writes the files and the metrics
+    dp = 1 if mesh is None else mesh.dp
+    host_bs = micro_batch // dp
     seed = args.seed if args.seed is not None else 0
     dtype = torch.bfloat16 if args.mixed_precision == "bf16" else torch.float32
     tokenizer, models, lora_config = load_models(
@@ -423,7 +480,7 @@ def main(argv=None, dataset=None):
             raise ValueError(f"--face_loss {args.face_loss} requires --face_model_weights (pretrained embedder "
                              ".pt); a randomly-initialized embedder produces a meaningless identity signal. "
                              "Pass --allow_random_face_model to override for testing.")
-        if args.face_model_weights is None:
+        if args.face_model_weights is None and lead:
             print("WARNING: --face_loss with RANDOM embedder weights (--allow_random_face_model): the "
                   "identity loss is noise.")
         face_loss_obj = load_face_loss(args.face_loss, args.face_model_weights, device=device)
@@ -433,10 +490,8 @@ def main(argv=None, dataset=None):
         def face_metric(x, gen):
             return face_loss_obj(x, gen, maximize=False, normalize=False)
 
-    accum, micro_batch = accumulation_plan(args.train_batch_size, args.gradient_accumulation_steps,
-                                           args.auto_grad_accum, args.max_microbatch_per_chip)
-    if accum != args.gradient_accumulation_steps:
-        print(f"auto_grad_accum: micro-batch {micro_batch} x {accum} accumulation steps ({micro_batch}/chip)")
+    if accum != args.gradient_accumulation_steps and lead:
+        print(f"auto_grad_accum: micro-batch {micro_batch} x {accum} accumulation steps ({host_bs}/chip)")
     cfg = TrainConfig(
         learning_rate=args.learning_rate, adam_beta1=args.adam_beta1, adam_beta2=args.adam_beta2,
         adam_weight_decay=args.adam_weight_decay, adam_epsilon=args.adam_epsilon,
@@ -446,8 +501,21 @@ def main(argv=None, dataset=None):
     _, _, optimizer = init_train_state(models, cfg)
     start_step = 0
     if args.resume_from:
+        # loaded whole, as one process loads it, then cut to this rank's share
         start_step = load_progress(args.resume_from, models, optimizer)
-        print(f"resumed from {args.resume_from} at step {start_step}")
+        if lead:
+            print(f"resumed from {args.resume_from} at step {start_step}")
+    layout = None
+    if mesh is not None:
+        from photoverse_tpu_torch.parallel.training import shard_training
+
+        optimizer = shard_training(models, optimizer, mesh, fsdp=args.fsdp, zero1=args.shard_optimizer_state)
+        layout = optimizer.layout
+        if lead:
+            place = layout.placements.values()
+            print(f"[parallel] training on a {mesh.dp} x {mesh.mp} mesh: {sum(p.model is not None for p in place)} "
+                  f"tensor-parallel leaves, {sum(p.data is not None for p in place)} FSDP shards, "
+                  f"{sum(p.zero is not None for p in place)} ZeRO-1 slices", flush=True)
 
     if dataset is None:
         ds_kw = dict(tokenizer=tokenizer, size=args.resolution, use_random_templates=args.use_random_prompts,
@@ -457,8 +525,12 @@ def main(argv=None, dataset=None):
             dataset = CustomDataset(args.data_root_path, **ds_kw)
         else:
             dataset = CustomDatasetWithMasks(args.data_root_path, mask_subfolder=args.mask_subfolder, **ds_kw)
+    # every data rank decodes only its rows of each micro-batch; the model
+    # ranks of one data rank share its template stream (keyed on the data rank)
     loader = BatchLoader(dataset, micro_batch, shuffle=True, seed=seed, num_workers=args.dataloader_num_workers,
-                         native=args.native_loader)
+                         native=args.native_loader,
+                         host_slice=None if mesh is None else host_batch_slice(micro_batch, mesh),
+                         host_id=0 if mesh is None else mesh.data_rank)
 
     fuse_face = bool(args.fuse_face_accum and args.face_loss and accum > 1)
     step_fn = TrainStep(models, cfg, optimizer, face_loss_fn, face_solver,
@@ -468,15 +540,17 @@ def main(argv=None, dataset=None):
     n_cross = len(models.unet.cross_attentions())
 
     os.makedirs(args.output_dir, exist_ok=True)
-    writer = MetricsWriter(args.output_dir, report_to=args.report_to, config=vars(args))
+    writer = MetricsWriter(args.output_dir, report_to=args.report_to, config=vars(args)) if lead else None
     num_update_steps_per_epoch = math.ceil(len(loader) / accum)
     num_epochs = math.ceil(args.max_train_steps / max(num_update_steps_per_epoch, 1))
-    print(f"~~~~~ Running training ~~~~~\n  Num examples = {len(dataset)}\n  Num Epochs = {num_epochs}\n"
-          f"  Batch size per step = {args.train_batch_size}\n  Devices = 1 ({device})\n"
-          f"  Total optimization steps = {args.max_train_steps}", flush=True)
+    if lead:
+        print(f"~~~~~ Running training ~~~~~\n  Num examples = {len(dataset)}\n  Num Epochs = {num_epochs}\n"
+              f"  Batch size per step = {args.train_batch_size}\n"
+              f"  Devices = {1 if mesh is None else mesh.world} ({device})\n"
+              f"  Total optimization steps = {args.max_train_steps}", flush=True)
 
-    ckpt_async = AsyncCheckpointer() if args.async_checkpointing else None
-    if args.checkpoint_format == "pt":
+    ckpt_async = AsyncCheckpointer() if args.async_checkpointing and lead else None
+    if args.checkpoint_format == "pt" and lead:
         print("WARNING: --checkpoint_format pt has no optimizer state / step counter; --resume_from needs the "
               "native format (a native checkpoint is still written on SIGTERM/SIGINT)")
 
@@ -488,9 +562,12 @@ def main(argv=None, dataset=None):
         return run
 
     def save_ckpt(step_, force_native=False, final=False):
+        """Every rank gathers its shards; rank 0 writes."""
         t = time.perf_counter()
-        snap = host_save_snapshot(models)
+        snap = host_save_snapshot(models, layout)
         opt_save = optax_state(optimizer)
+        if not lead:
+            return
         print(f"checkpoint: host snapshot at step {step_} in {time.perf_counter() - t:.4f}s", flush=True)
         jobs = []
         if args.checkpoint_format in ("native", "both") or force_native:
@@ -508,12 +585,21 @@ def main(argv=None, dataset=None):
             if ckpt_async is not None:
                 ckpt_async.close()
         finally:
-            writer.close()
+            if writer is not None:
+                writer.close()
 
     stop_requested = {"flag": False}
 
     def _on_term(signum, frame):
         stop_requested["flag"] = True
+
+    def stopping() -> bool:
+        """The stop flag of any rank (one all_reduce at every optimizer step,
+        so that every rank stops at the same step)."""
+        if mesh is None:
+            return stop_requested["flag"]
+        flag = torch.tensor([float(stop_requested["flag"])])
+        return bool(mesh.world_comm.all_reduce(flag)[0] > 0)
 
     previous = {s: signal.signal(s, _on_term) for s in (signal.SIGTERM, signal.SIGINT)}
     face_rng = np.random.RandomState(seed + 1)
@@ -526,16 +612,21 @@ def main(argv=None, dataset=None):
     profiler = None
     profile_range = tuple(int(x) for x in args.profile_steps.split(",")) if args.profile_steps else None
     eval_solver = DPMSolverMultistep.create(models.schedule, args.denoise_timesteps)
-    n_face = face_rows(args.face_loss_sample_ratio, micro_batch, accum, fuse_face) if args.face_loss else 0
+    # the face sub-batch comes from this data rank's rows, as the JAX CLI slices it per host
+    n_face = face_rows(args.face_loss_sample_ratio, host_bs, accum, fuse_face) if args.face_loss else 0
+    params_sharded = mesh is not None and (mesh.mp > 1 or (args.fsdp and mesh.dp > 1))
     try:
         for _epoch in range(num_epochs):
             for batch in loader:
                 window_final = (micro_step + 1) % accum == 0
                 face = bool(args.face_loss) and (not fuse_face or window_final)
                 hb = host_batch(batch, tokenizer, n_face if face else 0, face_rng)
-                draws = make_draws(generator, micro_batch, latent_size, n_cross, face_rows=n_face if face else 0,
-                                   in_channels=models.unet.config.in_channels)
-                if profile_range and global_step == profile_range[0] and profiler is None:
+                if mesh is not None:
+                    hb = shard_batch(hb, mesh)
+                # the whole micro-batch's draws on every rank; the step keeps this rank's rows
+                draws = make_draws(generator, micro_batch, latent_size, n_cross,
+                                   face_rows=n_face * dp if face else 0, in_channels=models.unet.config.in_channels)
+                if profile_range and global_step == profile_range[0] and profiler is None and lead:
                     profiler = _Profiler(args.output_dir, on_card)
                 t_step = time.perf_counter()
                 metrics = (step_noface if fuse_face and not window_final else step_fn)(hb, draws)
@@ -561,15 +652,17 @@ def main(argv=None, dataset=None):
                 }
                 if args.face_loss:
                     logs["loss_face"] = metrics["loss_face"]
-                writer.log(logs, global_step)
+                if writer is not None:
+                    writer.log(logs, global_step)
 
-                if stop_requested["flag"]:
-                    print(f"termination requested — checkpointing at step {global_step}", flush=True)
+                if stopping():
+                    if lead:
+                        print(f"termination requested — checkpointing at step {global_step}", flush=True)
                     save_ckpt(global_step, force_native=True)
                     finalize_io()
                     return models, optimizer, global_step
 
-                if global_step % args.samples_save_steps == 0:
+                if global_step % args.samples_save_steps == 0 and (lead or params_sharded):
                     _save_samples(args, models, tokenizer, eval_solver, batch, global_step, writer, latent_size,
                                   face_metric=face_metric)
                 if global_step % args.checkpoint_save_steps == 0:
@@ -584,9 +677,10 @@ def main(argv=None, dataset=None):
             profiler.stop()
         if last_ckpt_step == global_step and global_step > 0:
             # the boundary save holds this exact state: promote its files
-            if ckpt_async is not None:
-                ckpt_async.wait()
-            _promote_final_ckpt(args, global_step)
+            if lead:
+                if ckpt_async is not None:
+                    ckpt_async.wait()
+                _promote_final_ckpt(args, global_step)
         else:
             # unstepped names, the step embedded: resuming continues here
             save_ckpt(global_step, final=True)

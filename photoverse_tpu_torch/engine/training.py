@@ -26,6 +26,16 @@ photoverse_tpu/engine/training.py.
     uniforms and the LoRA dropout generator, for the main branch and for
     the face branch under "face". Tests fill it with the values the JAX
     package draws from its key.
+  - Several ranks (a parallel.training.TrainLayout on the optimizer):
+    data-parallel semantics equal to one process. Every rank makes the
+    draws of the whole micro-batch and keeps its rows
+    (`TrainLayout.local_draws`; the dropout masks through a RowGenerator),
+    each rank's loss is the mean over its equal share of rows, and the
+    optimizer averages the accumulated gradient over the data group once
+    per window before clipping (the clip norms are those of the whole
+    gradient). Under tensor parallelism the identity-value norms of the
+    visual regulariser are summed over the model group; the reported
+    metrics are means over the data group.
 """
 
 from __future__ import annotations
@@ -36,7 +46,7 @@ from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
-from photoverse_tpu_torch.ckpt.checkpoint import partition_params
+from photoverse_tpu_torch.ckpt.checkpoint import _host, partition_params
 from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
 from photoverse_tpu_torch.engine.inference import denoise, encode_condition
 
@@ -100,16 +110,22 @@ def make_lr_schedule(cfg: TrainConfig) -> Callable[[int], float]:
     return lr
 
 
-def clip_groups(grads: Dict[str, torch.Tensor], max_norm: float) -> Dict[str, torch.Tensor]:
+def clip_groups(grads: Dict[str, torch.Tensor], max_norm: float,
+                global_sq: Optional[Callable] = None) -> Dict[str, torch.Tensor]:
     """Global-norm clipping per model group (the key's first component):
     g * min(1, max_norm / max(||g||, 1e-12)). Unlike clip_grad_norm_, no
-    1e-6 is added to the norm."""
+    1e-6 is added to the norm. `global_sq` maps {key: this rank's sum of
+    squares} to {group: the whole gradient's sum of squares} when the
+    leaves are shards of a multi-rank layout."""
     groups: Dict[str, list] = {}
     for key in grads:
         groups.setdefault(key.split(".", 1)[0], []).append(key)
     out = dict(grads)
-    for keys in groups.values():
-        norm = torch.sqrt(sum(grads[k].float().square().sum() for k in keys))
+    sq = {k: g.float().square().sum() for k, g in grads.items()}
+    totals = global_sq(sq) if global_sq is not None else {
+        name: sum(sq[k] for k in keys) for name, keys in groups.items()}
+    for name, keys in groups.items():
+        norm = torch.sqrt(totals[name])
         scale = torch.clamp(max_norm / torch.clamp(norm, min=1e-12), max=1.0)
         for k in keys:
             out[k] = grads[k] * scale.to(grads[k].dtype)
@@ -119,20 +135,44 @@ def clip_groups(grads: Dict[str, torch.Tensor], max_norm: float) -> Dict[str, to
 class Optimizer:
     """AdamW (torch.optim.AdamW, optax's update) on the f32 masters, with
     optax.MultiSteps accumulation and per-group clipping of the averaged
-    gradient at the window boundary."""
+    gradient at the window boundary.
 
-    def __init__(self, params: Dict[str, torch.nn.Parameter], cfg: TrainConfig):
+    With a `layout` (parallel.training.TrainLayout) the parameters may be
+    shards: the window's gradient is averaged over the data group first
+    (`_reduce_grads`), the clip norms span every rank's shard, and under
+    ZeRO-1 AdamW holds and updates only this rank's slice of a leaf (its
+    `zero` dim), after which the updated slices are all-gathered into the
+    whole masters (`_gather_slices`)."""
+
+    def __init__(self, params: Dict[str, torch.nn.Parameter], cfg: TrainConfig, layout=None):
         self.params = params
+        self.cfg = cfg
+        self.layout = layout
         self.lr = make_lr_schedule(cfg)
         self.accum = cfg.gradient_accumulation_steps
         self.max_grad_norm = cfg.max_grad_norm
+        # ZeRO-1: AdamW's parameter is this rank's slice, a view of the master
+        self.slices = {} if layout is None else layout.zero_slices(params)
         self.adamw = torch.optim.AdamW(
-            list(params.values()), lr=self.lr(0), betas=(cfg.adam_beta1, cfg.adam_beta2),
-            eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay, foreach=False,
+            [self.slices.get(k, p) for k, p in params.items()], lr=self.lr(0),
+            betas=(cfg.adam_beta1, cfg.adam_beta2), eps=cfg.adam_epsilon, weight_decay=cfg.adam_weight_decay,
+            foreach=False,
         )
         self.acc = {k: torch.zeros_like(p) for k, p in params.items()}
         self.mini_step = 0
         self.updates = 0
+
+    def adam_param(self, key: str) -> torch.nn.Parameter:
+        """The tensor AdamW updates for leaf `key` (its state's key)."""
+        return self.slices.get(key, self.params[key])
+
+    def _reduce_grads(self) -> None:
+        if self.layout is not None:
+            self.layout.reduce_grads(self.acc)
+
+    def _gather_slices(self) -> None:
+        if self.slices:
+            self.layout.gather_slices(self.params, self.slices)
 
     @torch.no_grad()
     def step(self, grads: Dict[str, torch.Tensor]) -> bool:
@@ -145,17 +185,49 @@ class Optimizer:
         if n + 1 < self.accum:
             self.mini_step += 1
             return False
-        for k, g in clip_groups(self.acc, self.max_grad_norm).items():
-            self.params[k].grad = g
+        self._reduce_grads()
+        global_sq = None if self.layout is None else self.layout.global_sq
+        for k, g in clip_groups(self.acc, self.max_grad_norm, global_sq).items():
+            self.adam_param(k).grad = self.layout.zero_slice(k, g) if k in self.slices else g
         for group in self.adamw.param_groups:
             group["lr"] = self.lr(self.updates)
         self.adamw.step()
         self.adamw.zero_grad(set_to_none=True)
+        self._gather_slices()
         for acc in self.acc.values():
             acc.zero_()
         self.mini_step = 0
         self.updates += 1
         return True
+
+    @torch.no_grad()
+    def host_state(self):
+        """(mu, nu, acc): AdamW's moments and the accumulator of every leaf,
+        whole, as host f32 arrays; multi-rank, every rank takes part in the
+        layout's gathers and rank 0 receives them (the others get None). The
+        accumulator is then the data group's mean, as one process
+        accumulates the whole batch's gradient."""
+        layout, acc = self.layout, self.acc
+        if layout is None:
+            def to_host(key, t, zero=False):
+                return _host(t)
+        else:
+            to_host = layout.host
+            acc = {k: v.clone() for k, v in acc.items()}
+            layout.reduce_grads(acc)
+        mu, nu = {}, {}
+        for k in self.params:
+            ap = self.adam_param(k)
+            st = self.adamw.state.get(ap, {})
+            if st and int(st["step"]) != self.updates:
+                raise RuntimeError(f"{k}: AdamW step {int(st['step'])} != {self.updates} updates")
+            zero = k in self.slices
+            mu[k] = to_host(k, st["exp_avg"] if st else torch.zeros_like(ap), zero)
+            nu[k] = to_host(k, st["exp_avg_sq"] if st else torch.zeros_like(ap), zero)
+        acc = {k: to_host(k, v) for k, v in acc.items()}
+        if layout is not None and layout.mesh.rank != 0:
+            return None
+        return mu, nu, acc
 
 
 def make_optimizer(cfg: TrainConfig, params: Dict[str, torch.nn.Parameter]) -> Optimizer:
@@ -235,6 +307,8 @@ class TrainStep:
         self.face_loss_fn = face_loss_fn
         self.face_solver = face_solver
         self.face_weight_scale = face_weight_scale
+        # several ranks: the optimizer's parallel.training.TrainLayout
+        self.layout = None if optimizer is None else optimizer.layout
         self.trainable, _ = partition_params(models)
 
     def _tensors(self, batch: Dict) -> Dict:
@@ -254,8 +328,13 @@ class TrainStep:
         return self.models.text_encoder(ids, concept, None if pidx is None else pidx.reshape(-1))[0]
 
     def loss_fn(self, batch: Dict, draws: Dict) -> Tuple[torch.Tensor, Dict]:
-        m, cfg = self.models, self.cfg
+        """`batch` holds this rank's rows, `draws` the whole micro-batch's
+        (the same on every rank)."""
+        m, cfg, layout = self.models, self.cfg, self.layout
         batch = self._tensors(batch)
+        if layout is not None:
+            draws = layout.local_draws(draws, len(batch["pixel_values"]),
+                                       len(batch["face_pixel_values"]) if "face" in draws else 0)
         with torch.no_grad():
             latents = m.vae.encode_sample(batch["pixel_values"], draws["vae_noise"]) * m.scaling_factor
         noise = draws["noise"].to(latents.dtype)
@@ -268,6 +347,8 @@ class TrainStep:
         diffusion = (eps_pred.float() - noise.float()).square().mean()
         concept_reg = concept.float().abs().mean()
         visual_reg = v_norms.float().mean()
+        if layout is not None:  # the mean over every head: the model group's local means, averaged
+            visual_reg = layout.model_mean(visual_reg)
         floss = torch.zeros((), device=latents.device)
         if self.face_loss_fn is not None:
             floss = self._face_loss(batch, draws["face"])
@@ -280,6 +361,8 @@ class TrainStep:
             "loss_reg_cross_attn_visual": visual_reg.detach(),
             "loss_face": floss.detach(),
         }
+        if layout is not None:
+            metrics = layout.data_mean(metrics)
         return total, metrics
 
     def _face_loss(self, batch: Dict, fd: Dict) -> torch.Tensor:
@@ -326,7 +409,8 @@ def make_train_step(models, cfg: TrainConfig, optimizer: Optional[Optimizer] = N
 def init_train_state(models, cfg: TrainConfig):
     """Trainable parameters become f32 masters that require grad (the
     frozen ones keep their dtype and require none); returns (trainable,
-    frozen, optimizer)."""
+    frozen, optimizer). For several ranks, parallel.training.shard_training
+    then cuts the models and this optimizer to each rank's share."""
     models.requires_grad_(False)
     trainable, frozen = partition_params(models)
     for p in trainable.values():

@@ -153,7 +153,7 @@ class CLIPTextEncoder(nn.Module):
             if placeholder_idx is None:
                 raise ValueError("placeholder_idx required with concept_embeds")
             x = inject_concept_embeddings(x, concept_embeds, placeholder_idx)
-        x = x + self.embeddings.position_embedding.weight[None, :S]
+        x = x + self.embeddings.position_embedding(torch.arange(S, device=x.device))[None]
         causal = torch.full((S, S), torch.finfo(torch.float32).min, device=x.device).triu(1)
         for layer in self.encoder.layers:
             x = layer(x, causal)
@@ -170,6 +170,16 @@ class _VisionEmbeddings(nn.Module):
             cfg.num_channels, cfg.hidden_size, cfg.patch_size, stride=cfg.patch_size, bias=False
         )
         self.position_embedding = nn.Embedding(cfg.seq_len, cfg.hidden_size)
+
+    def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
+        """(B, H, W, C) NHWC -> [class token; patches] + positions, (B, seq_len, D)."""
+        B = pixel_values.shape[0]
+        w = self.patch_embedding.weight
+        patches = self.patch_embedding(pixel_values.permute(0, 3, 1, 2).to(w.dtype))
+        patches = patches.flatten(2).transpose(1, 2)  # (B, h*w, D)
+        cls = self.class_embedding.to(patches.dtype).expand(B, 1, -1)
+        x = torch.cat([cls, patches], dim=1)
+        return x + self.position_embedding(torch.arange(x.shape[1], device=x.device))[None]
 
 
 class CLIPVisionEncoder(nn.Module):
@@ -192,14 +202,7 @@ class CLIPVisionEncoder(nn.Module):
         c = self.config
         if pixel_values.shape[-1] != c.num_channels:
             raise ValueError(f"expected NHWC input with {c.num_channels} channels, got {tuple(pixel_values.shape)}")
-        B = pixel_values.shape[0]
-        emb = self.embeddings
-        w = emb.patch_embedding.weight
-        patches = emb.patch_embedding(pixel_values.permute(0, 3, 1, 2).to(w.dtype))
-        patches = patches.flatten(2).transpose(1, 2)  # (B, h*w, D)
-        cls = emb.class_embedding.to(patches.dtype).expand(B, 1, -1)
-        x = torch.cat([cls, patches], dim=1) + emb.position_embedding.weight[None]
-        x = self.pre_layrnorm(x)
+        x = self.pre_layrnorm(self.embeddings(pixel_values))
         collected = {0: x} if 0 in collect_layers else {}
         for i, layer in enumerate(self.encoder.layers):
             x = layer(x)

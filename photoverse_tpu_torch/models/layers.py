@@ -10,7 +10,14 @@ moments over the model group; unset (None), both are the plain layers.
 
 Trainable weights may stay f32 masters inside a bf16 model: `Linear`
 casts its weight to the activation's dtype in `forward`, as flax's
-`dtype=` does, so the same module serves both."""
+`dtype=` does, so the same module serves both.
+
+Under tensor-parallel training a projection's `comm` (the model group)
+is set: its input, and LoRA's lora_B input, go through
+parallel.mesh.copy_to_model. Under data parallelism the dropout
+generator may be a `RowGenerator`: the mask is drawn for the whole batch
+and cut to this rank's rows, so a row's mask does not depend on the rank
+it runs on."""
 
 from __future__ import annotations
 
@@ -20,9 +27,11 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from photoverse_tpu_torch.parallel.mesh import copy_to_model
+
 __all__ = [
     "Conv2d", "GroupNorm", "LayerNorm", "Linear", "LoraLinear", "ResnetBlock", "Group", "Sampler",
-    "proj", "dropout", "remat", "replaying",
+    "proj", "dropout", "remat", "replaying", "RowGenerator",
 ]
 
 
@@ -31,17 +40,16 @@ class Conv2d(nn.Conv2d):
 
     spatial = None  # parallel.sp.Spatial
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if self.spatial is None:
+    def forward(self, x: torch.Tensor, f32: bool = False) -> torch.Tensor:
+        """The convolution; with `f32`, of input, weight and bias in f32."""
+        if not f32 and self.spatial is None:
             return super().forward(x)
-        return self.spatial.conv2d(x, self.weight, self.bias, self.stride[0], self.padding[0])
-
-    def forward_f32(self, x: torch.Tensor) -> torch.Tensor:
-        """The convolution with input, weight and bias in f32."""
-        w, b = self.weight.float(), self.bias.float()
+        w, b = self.weight, self.bias
+        if f32:
+            x, w, b = x.float(), w.float(), b.float()
         if self.spatial is None:
-            return F.conv2d(x.float(), w, b, self.stride, self.padding)
-        return self.spatial.conv2d(x.float(), w, b, self.stride[0], self.padding[0])
+            return F.conv2d(x, w, b, self.stride, self.padding)
+        return self.spatial.conv2d(x, w, b, self.stride[0], self.padding[0])
 
 
 class GroupNorm(nn.GroupNorm):
@@ -94,12 +102,42 @@ class Linear(nn.Linear):
         return self.weight
 
 
-def dropout(x: torch.Tensor, p: float, generator: Optional[torch.Generator]) -> torch.Tensor:
-    """Inverted dropout with its mask drawn from `generator`: each element
-    is kept with probability 1 - p and scaled by 1 / (1 - p)."""
+class RowGenerator:
+    """A data rank's view of the generator of a whole batch: the batch has
+    `total` rows and this rank holds rows [start, start + rows). A draw for
+    an activation of k * rows rows (k stacked copies of the rank's rows, as
+    [uncond; cond] under guidance) is made at k * total rows, as one
+    process draws it, and cut to the rank's rows of each copy."""
+
+    def __init__(self, generator: torch.Generator, total: int, start: int, rows: int):
+        self.generator, self.total, self.start, self.rows = generator, total, start, rows
+
+    def get_state(self):
+        return self.generator.get_state()
+
+    def set_state(self, state):
+        self.generator.set_state(state)
+
+    def rand(self, shape, device) -> torch.Tensor:
+        k, rem = divmod(shape[0], self.rows)
+        if rem:
+            raise ValueError(f"an activation of {shape[0]} rows is not copies of this rank's {self.rows}")
+        whole = torch.rand((k * self.total, *shape[1:]), generator=self.generator, device=device)
+        own = torch.arange(self.start, self.start + self.rows, device=device)
+        return whole[torch.cat([own + j * self.total for j in range(k)])]
+
+
+def dropout(x: torch.Tensor, p: float, generator) -> torch.Tensor:
+    """Inverted dropout with its mask drawn from `generator` (a
+    torch.Generator or a RowGenerator): each element is kept with
+    probability 1 - p and scaled by 1 / (1 - p)."""
     if generator is None:
         raise ValueError("dropout in train mode needs an explicit torch.Generator")
-    keep = torch.rand(x.shape, generator=generator, device=x.device) >= p
+    if isinstance(generator, RowGenerator):
+        u = generator.rand(x.shape, x.device)
+    else:
+        u = torch.rand(x.shape, generator=generator, device=x.device)
+    keep = u >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype, device=x.device))
 
 
@@ -144,7 +182,12 @@ class LoraLinear(nn.Module):
     """Bias-free Linear plus a LoRA branch:
     y = x W^T + (alpha / r) * drop(x) A^T B^T, where drop is dropout with
     rate `dropout` in train mode and the identity in eval mode. Parameter
-    names follow peft (`base_layer`, `lora_A.default`, `lora_B.default`)."""
+    names follow peft (`base_layer`, `lora_A.default`, `lora_B.default`).
+    With `comm` set (a tensor-parallel shard: base_layer and lora_B hold
+    this rank's output features, lora_A is whole) the inputs of base_layer
+    and lora_B go through copy_to_model."""
+
+    comm = None  # parallel.mesh.Comm of the model group
 
     def __init__(self, in_features: int, out_features: int, rank: int, alpha: float,
                  dropout: float = 0.0):
@@ -158,7 +201,8 @@ class LoraLinear(nn.Module):
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
         h = dropout(x, self.dropout, generator) if train and self.dropout > 0 else x
-        return self.base_layer(x) + self.lora_B["default"](self.lora_A["default"](h)) * self.scale
+        h = copy_to_model(self.lora_A["default"](h), self.comm)
+        return self.base_layer(copy_to_model(x, self.comm)) + self.lora_B["default"](h) * self.scale
 
     def effective_weight(self) -> torch.Tensor:
         """(out, in) weight with the LoRA delta folded in (eval: no dropout)."""
@@ -176,11 +220,15 @@ def proj(in_features: int, out_features: int, lora_rank: int = 0, lora_alpha: fl
 
 
 class _PlainProj(Linear):
-    """A projection without LoRA: train mode and the generator do nothing."""
+    """A projection without LoRA: train mode and the generator do nothing;
+    with `comm` set (a column-parallel shard) its input goes through
+    copy_to_model."""
+
+    comm = None  # parallel.mesh.Comm of the model group
 
     def forward(self, x: torch.Tensor, train: bool = False,
                 generator: Optional[torch.Generator] = None) -> torch.Tensor:
-        return super().forward(x)
+        return super().forward(copy_to_model(x, self.comm))
 
 
 class ResnetBlock(nn.Module):

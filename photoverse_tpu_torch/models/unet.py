@@ -34,8 +34,10 @@ without the fused tail.
 Multi-GPU (parallel/): `UNet2DCondition(config, tp=TPShard(...))` builds
 one rank's shard of a tensor-parallel UNet (the column-parallel
 projections at H / tp heads, to_out and the feed-forward's output as
-parallel.tp.RowParallelLinear); its `v_ip_norms` then hold the rank's
-heads only. A `parallel.sp.Spatial` set by `parallel.sp.enable_spatial`
+parallel.tp.RowParallelLinear, the column-parallel projections'
+inputs through parallel.mesh.copy_to_model so that training's input
+gradients are summed over the group); its `v_ip_norms` then hold the
+rank's heads only. A `parallel.sp.Spatial` set by `parallel.sp.enable_spatial`
 splits the latent rows: the 3x3 convolutions and GroupNorms exchange rows
 or moments, self-attention gathers K and V (or hands them to
 `UNetConfig.flash_fn`), and the identity mask is resized whole and then
@@ -63,6 +65,7 @@ from photoverse_tpu_torch.models.layers import (
 from photoverse_tpu_torch.ops.attention import dual_context_attention, sdpa
 from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa, flash_sdpa_diff
 from photoverse_tpu_torch.ops.fused_block import fused_cross_ff
+from photoverse_tpu_torch.parallel.mesh import copy_to_model
 from photoverse_tpu_torch.parallel.tp import RowParallelLinear, TPShard
 
 __all__ = ["UNetConfig", "UNet2DCondition", "timestep_embedding"]
@@ -159,6 +162,10 @@ def _tp_size(tp: Optional[TPShard]) -> int:
     return 1 if tp is None else tp.size
 
 
+def _tp_comm(tp: Optional[TPShard]):
+    return None if tp is None else tp.comm
+
+
 class SelfAttention(nn.Module):
     """attn1; long sequences take the flash kernels when enabled: the
     differentiable route when grad is enabled, the no-grad one otherwise,
@@ -172,6 +179,7 @@ class SelfAttention(nn.Module):
         n = _tp_size(tp)
         self.heads = heads // n
         self.cfg = cfg
+        self.tp_comm = _tp_comm(tp)
         self.to_q = nn.Linear(ch, ch // n, bias=False)
         self.to_k = nn.Linear(ch, ch // n, bias=False)
         self.to_v = nn.Linear(ch, ch // n, bias=False)
@@ -180,6 +188,7 @@ class SelfAttention(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         B, S, _ = x.shape
         H = self.heads
+        x = copy_to_model(x, self.tp_comm)
         q = self.to_q(x).reshape(B, S, H, -1)
         k = self.to_k(x).reshape(B, S, H, -1)
         v = self.to_v(x).reshape(B, S, H, -1)
@@ -222,6 +231,9 @@ class DualCrossAttention(nn.Module):
         self.to_v = proj(cd, ch // n, r, a, p)
         self.to_out = nn.ModuleList([_out_proj(ch // n, ch, tp)])
         self.processor = _IPProcessor(cd, ch // n)
+        self.tp_comm = _tp_comm(tp)
+        for m in (self.to_q, self.to_k, self.to_v):
+            m.comm = self.tp_comm
 
     def context_kv(self, text_ctx: torch.Tensor, id_ctx: torch.Tensor, train: bool = False,
                    generator: Optional[torch.Generator] = None):
@@ -231,6 +243,7 @@ class DualCrossAttention(nn.Module):
         H = self.heads
         split = lambda t: t.reshape(B, -1, H, t.shape[-1] // H)  # noqa: E731
         p = self.processor
+        id_ctx = copy_to_model(id_ctx, self.tp_comm)
         return (split(self.to_k(text_ctx, train, generator)),
                 split(self.to_v(text_ctx, train, generator)),
                 split(p.to_k_ip[0](id_ctx)), split(p.to_v_ip[0](id_ctx)))
@@ -272,9 +285,10 @@ class _FeedForward(nn.Module):
         # diffusers keys ff.net.0.proj / ff.net.2 (index 1 is a dropout)
         self.net = nn.ModuleList([_GEGLUProj(ch, 8 * ch // n), nn.Identity(),
                                   _out_proj(4 * ch // n, ch, tp)])
+        self.tp_comm = _tp_comm(tp)
 
     def forward(self, x):
-        return self.net[2](self.net[0](x))
+        return self.net[2](self.net[0](copy_to_model(x, self.tp_comm)))
 
 
 class BasicTransformerBlock(nn.Module):

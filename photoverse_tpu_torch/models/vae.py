@@ -104,7 +104,7 @@ def _run_mid(mid: Group, x: torch.Tensor) -> torch.Tensor:
 
 def _conv_out_f32(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
     """The last conv in f32, as in the reference; NCHW in, NHWC out."""
-    return conv.forward_f32(x).permute(0, 2, 3, 1)
+    return conv(x, f32=True).permute(0, 2, 3, 1)
 
 
 class Encoder(nn.Module):
@@ -186,10 +186,9 @@ class Decoder(nn.Module):
         return _conv_out_f32(self.conv_out, F.silu(self.conv_norm_out(x)))
 
 
-def _conv1x1_f32(conv: nn.Conv2d, x: torch.Tensor) -> torch.Tensor:
+def _conv1x1_f32(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:
     """A 1x1 conv in f32 on an NHWC tensor."""
-    out = F.conv2d(x.permute(0, 3, 1, 2).float(), conv.weight.float(), conv.bias.float())
-    return out.permute(0, 2, 3, 1)
+    return conv(x.permute(0, 3, 1, 2), f32=True).permute(0, 2, 3, 1)
 
 
 class AutoencoderKL(nn.Module):
@@ -201,9 +200,9 @@ class AutoencoderKL(nn.Module):
         self.config = config
         # the decode half first: init_params fills parameters in this order
         self.decoder = Decoder(config)
-        self.post_quant_conv = nn.Conv2d(config.latent_channels, config.latent_channels, 1)
+        self.post_quant_conv = Conv2d(config.latent_channels, config.latent_channels, 1)
         self.encoder = Encoder(config)
-        self.quant_conv = nn.Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
+        self.quant_conv = Conv2d(2 * config.latent_channels, 2 * config.latent_channels, 1)
 
     def encode_moments(self, pixels: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
         """pixels (B, H, W, 3) in [-1, 1] -> (mean, logvar), each

@@ -1,15 +1,21 @@
-"""Multi-GPU serving of the port over torch.distributed: the counterpart of
-photoverse_tpu/parallel/ for generation.
+"""Multi-GPU serving and training of the port over torch.distributed: the
+counterpart of photoverse_tpu/parallel/.
 
-  mesh.py  - the process group, the backend rule, the (data, model) mesh
-             as subgroups, the collectives (staged through host memory
-             under gloo), the batch split;
-  tp.py    - Megatron tensor parallelism of the UNet's attention and
-             feed-forward weights;
-  sp.py    - spatial parallelism: the latent height split over the model
-             group (halo convolutions, GroupNorm moments, gathered K/V);
-  flash.py - the flash kernel on each rank's share under tensor and
-             spatial parallelism.
+  mesh.py     - the process group, the backend rule, the (data, model) mesh
+                as subgroups, the collectives (staged through host memory
+                under gloo) and their autograd forms for training (Megatron's
+                f and g, the shard gather), the batch split, ZeRO-1's rule;
+  tp.py       - Megatron tensor parallelism of the UNet's attention and
+                feed-forward weights;
+  sp.py       - spatial parallelism: the latent height split over the model
+                group (halo convolutions, GroupNorm moments, gathered K/V);
+  flash.py    - the flash kernels on each rank's share under tensor and
+                spatial parallelism (training: tensor only);
+  fsdp.py     - FSDP / ZeRO-3: the JAX package's shard rule, shards gathered
+                for each forward;
+  training.py - the training layout: each leaf's placement, the data-group
+                gradient mean, the clip norms, ZeRO-1 slices, the gathers
+                for a checkpoint (`shard_training`).
 
 Modes, as in the JAX CLIs' --sharding: `data` splits the batch and runs
 every kernel as one process does; `tensor` and `spatial` shard one model

@@ -14,9 +14,13 @@ decomposition over the model group `comm`:
             kernel attends the local Sq = S / sp query rows against all
             Skv = S keys (the no-grad forward takes Skv > Sq).
 
-The wrapper is the no-grad forward only: under grad it raises. The
-differentiable route (kernels 2 and 3 per rank) belongs to tensor-parallel
-training, which the port does not have yet (ROADMAP.md, Queue 1).
+Under grad (tensor-parallel training) the tensor mode runs the
+differentiable `flash_sdpa_diff` on the local heads: the lse forward
+(kernel 2) and the flash backward (kernel 3) per rank, each rank's
+gradients complete for its heads. The spatial mode stays inference-only,
+as in the JAX package: after the K/V gather the local problem has Sq < Skv,
+which the backward kernel does not model (it needs equal lengths), so
+under grad it raises.
 
 `enable_sharded_flash` installs it as the UNet's `UNetConfig.flash_fn`,
 the hook SelfAttention calls in place of the bare kernel. The VAE keeps its
@@ -30,7 +34,7 @@ import dataclasses
 
 import torch
 
-from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa
+from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa, flash_sdpa_diff
 
 __all__ = ["sharded_flash", "enable_sharded_flash"]
 
@@ -39,17 +43,20 @@ MODES = ("tensor", "spatial")
 
 def sharded_flash(comm, mode: str):
     """fn(q, k, v) -> (B, Sq, H, d): the flash forward on this rank's share
-    of a (B, S, H, d) attention; `mode` is "tensor" (local heads) or
-    "spatial" (local query rows, K and V gathered over `comm`)."""
+    of a (B, S, H, d) attention; `mode` is "tensor" (local heads; under
+    grad the differentiable kernels) or "spatial" (local query rows, K and
+    V gathered over `comm`; no-grad only)."""
     if mode not in MODES:
         raise ValueError(f"unknown sharded-flash mode {mode!r} (expected one of {MODES})")
 
     def fn(q, k, v):
         if torch.is_grad_enabled():
+            if mode == "tensor":
+                return flash_sdpa_diff(q, k, v)
             raise NotImplementedError(
-                "the sharded flash wrapper is the no-grad forward; its differentiable route "
-                "(tensor-parallel training) is not ported yet (ROADMAP.md, Queue 1: the training "
-                "half of parallel/)")
+                "the spatial flash wrapper is inference-only: after the K/V gather a rank attends "
+                "Sq < Skv, which the flash backward kernel does not model (it needs equal q/k "
+                "lengths); train under --tensor_parallel or without the spatial split")
         if mode == "spatial":
             k, v = comm.all_gather(k, 1), comm.all_gather(v, 1)
         return flash_sdpa(q, k, v)

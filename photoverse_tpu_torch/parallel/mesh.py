@@ -1,6 +1,6 @@
 """Process groups and the ("data", "model") mesh of the port's multi-GPU
-serving. Port of photoverse_tpu/parallel/mesh.py and of `make_mesh_2d`
-(photoverse_tpu/parallel/tp.py).
+serving and training. Port of photoverse_tpu/parallel/mesh.py and of
+`make_mesh_2d` (photoverse_tpu/parallel/tp.py).
 
 The JAX package builds one `jax.sharding.Mesh` and lets GSPMD derive every
 collective. Here each rank is a process, launched by
@@ -23,6 +23,16 @@ pinned host memory explicitly (`Comm`): copied to the host, which waits for
 the device, reduced or gathered there, and copied back. The time of that
 staging is part of every sharded run's time. Under nccl a host tensor
 (a seed, a request header) goes through the rank's card.
+
+Training (the collectives GSPMD derives for the JAX package's sharded
+step) adds three autograd Functions over a Comm: `reduce_from_model`
+(Megatron's "g": the forward sums over the model group, the backward is
+the identity), `copy_to_model` ("f": the forward is the identity, the
+backward sums), and `gather_shard` (the forward all-gathers a shard along
+a dim, the backward sums over the group and keeps this rank's slice: a
+reduce-scatter made of all_reduce, which gloo has where reduce_scatter it
+has not); and the data split of a batch (`host_batch_slice`,
+`shard_batch`) and of the optimizer state (`zero1_dim`).
 """
 
 from __future__ import annotations
@@ -46,6 +56,12 @@ __all__ = [
     "padded_rows",
     "pad_rows",
     "data_rows",
+    "host_batch_slice",
+    "shard_batch",
+    "zero1_dim",
+    "reduce_from_model",
+    "copy_to_model",
+    "gather_shard",
 ]
 
 # the serving followers wait on the control group between requests, for as
@@ -91,13 +107,16 @@ class Comm:
 
     def all_gather(self, t: torch.Tensor, dim: int) -> torch.Tensor:
         """Every rank's `t` (all of one shape) concatenated along `dim` in
-        group-rank order, on every rank."""
+        group-rank order, on every rank. The parts land in one (size,
+        *shape) block on the wire device (pinned when a CUDA tensor is
+        staged for gloo), moved back in one copy."""
         if self.size == 1:
             return t
         h = self._to_wire(t)
-        parts = [torch.empty_like(h) for _ in range(self.size)]
-        dist.all_gather(parts, h, group=self.group)
-        return self._back(torch.cat(parts, dim=dim), t)
+        block = torch.empty((self.size, *h.shape), dtype=h.dtype, device=h.device,
+                            pin_memory=h.device.type == "cpu" and t.is_cuda)
+        dist.all_gather(list(block.unbind(0)), h, group=self.group)
+        return torch.cat(self._back(block, t).unbind(0), dim=dim)
 
     def broadcast(self, t: torch.Tensor, src: int = 0) -> torch.Tensor:
         """Group rank `src`'s `t` on every rank (a new tensor elsewhere than
@@ -252,3 +271,98 @@ def data_rows(total: int, mesh: Mesh) -> slice:
         raise ValueError(f"a batch of {total} rows does not split over {mesh.dp} data ranks")
     per = total // mesh.dp
     return slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+
+
+def host_batch_slice(global_batch_size: int, mesh: Mesh) -> slice:
+    """This data rank's rows of a global batch (the loader's `host_slice`;
+    the model ranks of one data rank get the same rows)."""
+    if global_batch_size % mesh.dp:
+        raise ValueError(f"global batch {global_batch_size} not divisible by process count {mesh.dp} "
+                         f"(the data ranks)")
+    per = global_batch_size // mesh.dp
+    return slice(mesh.data_rank * per, (mesh.data_rank + 1) * per)
+
+
+def shard_batch(batch: dict, mesh: Mesh) -> dict:
+    """This rank's rows of a batch (already cut by the loader's
+    `host_batch_slice`; the global batch is never built) on its device."""
+    return {k: torch.as_tensor(v).to(mesh.device) for k, v in batch.items()}
+
+
+def zero1_dim(shape, n: int) -> Optional[int]:
+    """The dim ZeRO-1 splits a leaf's optimizer state along over `n` data
+    ranks: the leading one when it divides (`zero1_sharding` of the JAX
+    package); None keeps the leaf whole on every rank."""
+    if n > 1 and len(shape) >= 1 and shape[0] > 0 and shape[0] % n == 0:
+        return 0
+    return None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        return comm.all_reduce(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+class _CopyToModel(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm):
+        ctx.comm = comm
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_reduce(g), None
+
+
+class _GatherShard(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, comm, dim):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.all_gather(x, dim)
+
+    @staticmethod
+    def backward(ctx, g):
+        comm = ctx.comm
+        whole = comm.all_reduce(g.contiguous())
+        return whole.chunk(comm.size, dim=ctx.dim)[comm.rank].contiguous(), None, None
+
+
+def _single(comm) -> bool:
+    return comm is None or comm.size == 1
+
+
+def reduce_from_model(x: torch.Tensor, comm) -> torch.Tensor:
+    """The sum of `x` over the model group; its gradient passes through
+    unchanged (each rank holds the whole output's gradient already). The
+    row-parallel layers' partial products go through it."""
+    if _single(comm):
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return comm.all_reduce(x)
+    return _ReduceFromModel.apply(x, comm)
+
+
+def copy_to_model(x: torch.Tensor, comm) -> torch.Tensor:
+    """`x` (the same on every rank of the model group) as the input of a
+    column-parallel layer: the gradient that comes back is the sum of the
+    ranks' partial input gradients. Without it a replicated layer below
+    sees one rank's share of its output gradient."""
+    if _single(comm) or not (torch.is_grad_enabled() and x.requires_grad):
+        return x
+    return _CopyToModel.apply(x, comm)
+
+
+def gather_shard(x: torch.Tensor, comm, dim: int) -> torch.Tensor:
+    """Every rank's shard of one tensor, concatenated along `dim` in
+    group-rank order; the gradient of the whole is summed over the group and
+    cut back to this rank's shard (a reduce-scatter)."""
+    if _single(comm):
+        return x
+    if not (torch.is_grad_enabled() and x.requires_grad):
+        return comm.all_gather(x, dim)
+    return _GatherShard.apply(x, comm, dim)

@@ -29,6 +29,18 @@ or convert/from_diffusers.py) cut to its shard: `shard_unet` builds the
 UNet at the rank's shapes (`UNet2DCondition(config, tp=TPShard(...))`)
 and loads `shard_state_dict` into it.
 
+Training (Megatron's f and g, parallel/mesh.py): every column-parallel
+projection takes its input through `copy_to_model`, so the input gradient
+it returns is the sum of the ranks' partial products; LoRA's lora_B is a
+column-parallel layer on the replicated lora_A output, so a LoRA
+projection applies it to its base layer's input and to lora_B's input
+(models/layers.py), and lora_A's gradient comes out whole on every rank.
+The row-parallel sum is `reduce_from_model`. The trainables keep their
+placement from `unet_tp_spec`: lora_B, to_k_ip and to_v_ip are shards,
+lora_A and the adapters whole; `tree_tp_dim` says which of the
+trainable dict's leaves (and so of the AdamW moments and the gradient
+accumulator) are shards (`tree_tp_shardings` of the JAX package).
+
 Requirements (`validate_tp`): tp divides the head count (8 for SD-1.5, so
 tp in {2, 4, 8}); the flash kernel only through the sharded wrapper
 (parallel/flash.py); the fused block tail off (it has no sharded wrapper).
@@ -43,10 +55,13 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from photoverse_tpu_torch.parallel.mesh import reduce_from_model
+
 __all__ = [
     "TPShard",
     "RowParallelLinear",
     "unet_tp_dim",
+    "tree_tp_dim",
     "shard_state_dict",
     "shard_unet",
     "validate_tp",
@@ -79,7 +94,7 @@ class RowParallelLinear(nn.Linear):
         self.comm = comm
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        y = self.comm.all_reduce(F.linear(x, self.weight.to(x.dtype)))
+        y = reduce_from_model(F.linear(x, self.weight.to(x.dtype)), self.comm)
         return y if self.bias is None else y + self.bias.to(x.dtype)
 
 
@@ -110,6 +125,16 @@ def unet_tp_dim(name: str, ndim: int) -> Optional[int]:
     return None
 
 
+def tree_tp_dim(key: str, ndim: int) -> Optional[int]:
+    """The dim that tensor parallelism shards of a leaf of a flat
+    {"<model>.<parameter name>": tensor} dict (the trainables, the frozen
+    weights, the AdamW moments, the gradient accumulator): the UNet's by
+    `unet_tp_dim`, every other model's never (`tree_tp_shardings` of the
+    JAX package)."""
+    model, _, name = key.partition(".")
+    return unet_tp_dim(name, ndim) if model == "unet" else None
+
+
 def _chunk(t: torch.Tensor, dim: int, rank: int, size: int) -> torch.Tensor:
     if t.shape[dim] % size:
         raise ValueError(f"a dim of {t.shape[dim]} does not split over {size} ranks")
@@ -134,15 +159,15 @@ def shard_state_dict(state: Mapping[str, torch.Tensor], rank: int, size: int) ->
 
 
 def shard_unet(unet, shard: TPShard):
-    """A UNet at rank `shard.rank`'s shapes, on the device and in the dtype
-    of `unet`, holding its shard of `unet`'s weights."""
+    """A UNet at rank `shard.rank`'s shapes, on the device of `unet`,
+    holding its shard of `unet`'s weights in their dtypes (a training run's
+    f32 masters stay f32), with no parameter requiring grad."""
     from photoverse_tpu_torch.models.unet import UNet2DCondition
 
-    w = unet.conv_in.weight
-    with torch.device(w.device):
+    with torch.device(unet.conv_in.weight.device):
         local = UNet2DCondition(unet.config, tp=shard)
-    local.to(dtype=w.dtype)
-    local.load_state_dict(shard_state_dict(unet.state_dict(), shard.rank, shard.size), strict=True)
+    state = {k: t.detach() for k, t in unet.state_dict().items()}
+    local.load_state_dict(shard_state_dict(state, shard.rank, shard.size), strict=True, assign=True)
     return local.eval().requires_grad_(False)
 
 

@@ -191,9 +191,19 @@ def test_sharded_flash_matches_jax(flash_runs, mode):
 def test_sharded_flash_refusals(lora_bundle):
     with pytest.raises(ValueError, match="unknown sharded-flash mode"):
         sharded_flash(None, "pipeline")
+    # under grad the spatial split (Sq < Skv after the K/V gather) is refused,
+    # as in the JAX package; tensor runs the differentiable kernels on its heads
     q = torch.zeros(1, 8, 2, 4, requires_grad=True)
-    with pytest.raises(NotImplementedError, match="no-grad forward"):
-        sharded_flash(None, "tensor")(q, q, q)
+    with pytest.raises(NotImplementedError, match="spatial flash wrapper is inference-only"):
+        sharded_flash(None, "spatial")(q, q, q)
+    from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa_diff
+
+    qkv = [torch.randn(1, 8, 2, 4, generator=torch.Generator().manual_seed(i), requires_grad=True) for i in range(3)]
+    out = sharded_flash(None, "tensor")(*qkv)
+    assert out.requires_grad
+    grads = torch.autograd.grad(out.square().sum(), qkv)
+    want = torch.autograd.grad(flash_sdpa_diff(*qkv).square().sum(), qkv)
+    assert all(torch.equal(a, b) for a, b in zip(grads, want))
     modules, params = lora_bundle
     models = port_models(modules, params, unet_overrides={"fused_blocks": True})
     with pytest.raises(ValueError, match="fused_blocks has no sharded wrapper"):

@@ -317,17 +317,21 @@ def test_host_batch_matches_the_jax_cli(fixture_dirs, fuse):
     assert set(plain) == {"pixel_values", "pixel_values_clip", "text_input_ids", "concept_placeholder_idx"}
 
 
-@pytest.mark.parametrize("flags,message", [
-    (["--fsdp"], "--fsdp is not ported"),
-    (["--tensor_parallel", "2"], "--tensor_parallel 2 is not ported"),
-    (["--shard_optimizer_state"], "--shard_optimizer_state is not ported"),
-    # --face_loss facenet runs (test_facenet_face_loss_runs); this case
-    # asserted its refusal and now holds two refused flags together
-    (["--fsdp", "--shard_optimizer_state"], "--fsdp, --shard_optimizer_state is not ported"),
-    (["--push_to_hub"], "--push_to_hub needs the network"),
-    (["--mixed_precision", "fp16"], "fp16 is not supported"),
+@pytest.mark.parametrize("flags,world,message", [
+    # --fsdp, --tensor_parallel and --shard_optimizer_state run on several
+    # ranks (tests/test_torch_parallel_train*.py); what is refused is a mesh
+    # the launched ranks cannot form, before any process group opens
+    (["--tensor_parallel", "2"], 1, "--tensor_parallel 2 must divide the device count 1"),
+    (["--tensor_parallel", "3"], 4, "--tensor_parallel 3 must divide the device count 4"),
+    (["--tensor_parallel", "4"], 4, "tensor_parallel=4 must divide num_heads=2"),
+    (["--train_batch_size", "3"], 2, "global batch 3 not divisible by process count 2"),
+    (["--tensor_parallel", "2", "--train_batch_size", "3", "--fsdp"], 4,
+     "global batch 3 not divisible by process count 2"),
+    (["--push_to_hub"], 1, "--push_to_hub needs the network"),
+    (["--mixed_precision", "fp16"], 1, "fp16 is not supported"),
 ])
-def test_refused_flags_exit_with_their_message(fixture_dirs, tmp_path, flags, message):
+def test_refused_flags_exit_with_their_message(fixture_dirs, tmp_path, monkeypatch, flags, world, message):
+    monkeypatch.setenv("WORLD_SIZE", str(world))
     with pytest.raises(SystemExit, match=message):
         ttrain.main(_argv(fixture_dirs, tmp_path / "out", *flags))
     assert not os.path.exists(tmp_path / "out")  # refused before anything runs

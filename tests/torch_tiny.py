@@ -12,6 +12,7 @@ processes serves a test module's tasks: a rank's start (torch's import
 alone) costs more than its tiny task.
 """
 
+import contextlib
 import dataclasses
 import os
 import signal
@@ -22,7 +23,11 @@ import time
 import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-RANK_TIMEOUT_S = 120
+# seconds a launch of ranks may take before every rank is killed: a guard
+# against a hung collective, not a time limit of the work. Under the suite's
+# 6-worker load a launch takes up to about 2.5x its time on an idle host
+# (the multi-rank training tests' ranks: 139 s, 90 s idle)
+RANK_TIMEOUT_S = 300
 
 
 def _mirror(port_cls, jax_cfg, **overrides):
@@ -153,6 +158,136 @@ def run_ranks(specs, world: int, workdir, timeout=RANK_TIMEOUT_S):
     return [torch.load(spec["out"], weights_only=False) for spec in saved]
 
 
+def _rows(batch, mesh, face_rows=None):
+    """This data rank's rows of a whole batch (the face keys by the face
+    sub-batch's rows)."""
+    from photoverse_tpu_torch.parallel.mesh import host_batch_slice
+
+    out = {}
+    for k, v in batch.items():
+        n = len(v)
+        out[k] = v[host_batch_slice(n, mesh)]
+    return out
+
+
+def _task_train(mesh, spec):
+    """Micro-steps of the port's train step on this rank's share of the
+    spec's models (`shard_training` with the spec's flags): each step's
+    whole batch and draws come in the spec, every rank keeps its rows.
+    Returns the metrics of every micro-step and, for the first optimizer
+    step, the data-mean gradient the clip saw and the trainables after the
+    update, both gathered whole. A planted `fault` breaks one collective of
+    the sharded step. The models' state comes from the file `state_path`
+    (one file for many tasks: a tiny bundle's adapters are full width)."""
+    from unittest import mock
+
+    import torch
+
+    from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
+    from photoverse_tpu_torch.engine import training as ttr
+    from photoverse_tpu_torch.models import layers, unet
+    from photoverse_tpu_torch.models.assembly import build_models
+    from photoverse_tpu_torch.parallel import fsdp
+    from photoverse_tpu_torch.parallel.training import TrainLayout, shard_training
+
+    models = build_models(**spec["build"], device="cpu")
+    models.load_state_dict(torch.load(spec["state_path"], weights_only=True))
+    cfg = ttr.TrainConfig(**spec["cfg"])
+    _, _, optimizer = ttr.init_train_state(models, cfg)
+    optimizer = shard_training(models, optimizer, mesh, fsdp=spec.get("fsdp", False),
+                               zero1=spec.get("zero1", False), min_size=spec.get("min_size", 2**16))
+    layout = optimizer.layout
+    kw = {}
+    if spec.get("arcface") is not None:
+        from photoverse_tpu_torch.models.arcface import ArcFaceConfig, ArcFaceResNet18
+        from photoverse_tpu_torch.models.face_loss import FaceLoss, make_face_loss_fn
+
+        arc = ArcFaceResNet18(ArcFaceConfig(**spec["arcface"]["config"]), device="cpu")
+        arc.load_state_dict(spec["arcface"]["state"])
+        kw = dict(face_loss_fn=make_face_loss_fn(FaceLoss(arc.requires_grad_(False))),
+                  face_solver=DPMSolverMultistep.create(models.schedule, cfg.face_loss_timesteps))
+    step = ttr.TrainStep(models, cfg, optimizer, **kw)
+    seen = []
+    real_clip = ttr.clip_groups
+
+    def clip(grads, *a, **k):
+        seen.append({n: layout.gather(n, g).clone() for n, g in grads.items()})
+        return real_clip(grads, *a, **k)
+
+    patches = [mock.patch.object(ttr, "clip_groups", clip)]
+    spread = [0.0]
+    if mesh.mp > 1:  # a replicated trainable's gradient must be whole, so equal, on every model rank
+        def clip_and_spread(grads, *a, **k):
+            for n, g in grads.items():
+                if layout.placements[n].model is None:
+                    every = mesh.model_comm.all_gather(g[None], 0)
+                    spread[0] = max(spread[0], float((every - g[None]).abs().max()))
+            return clip(grads, *a, **k)
+
+        patches = [mock.patch.object(ttr, "clip_groups", clip_and_spread)]
+    fault = spec.get("fault")
+    if fault == "no_f":  # column-parallel inputs without the backward sum
+        patches += [mock.patch.object(m, "copy_to_model", lambda x, comm: x) for m in (unet, layers)]
+    elif fault == "summed":  # the data group's gradients summed, not averaged
+        real_reduce = TrainLayout.reduce_grads
+
+        def summed(self, acc):
+            real_reduce(self, acc)
+            for g in acc.values():
+                g.mul_(self.mesh.dp)
+
+        patches.append(mock.patch.object(TrainLayout, "reduce_grads", summed))
+    elif fault == "zero1_no_gather":  # the updated slices gathered but never written
+        def no_write(self, params, slices):
+            self.mesh.data_comm.all_gather(torch.cat([t.reshape(-1) for t in slices.values()]), 0)
+
+        patches.append(mock.patch.object(TrainLayout, "gather_slices", no_write))
+    elif fault == "local_masks":  # dropout masks drawn at the rank's shape, not cut from the batch's
+        real_draws = TrainLayout.local_draws
+
+        def local_masks(self, draws, rows, face_rows):
+            out = real_draws(self, draws, rows, face_rows)
+            for d in (out, out.get("face", {})):
+                if isinstance(d.get("dropout"), layers.RowGenerator):
+                    d["dropout"] = d["dropout"].generator
+            return out
+
+        patches.append(mock.patch.object(TrainLayout, "local_draws", local_masks))
+    elif fault == "stale_fsdp":  # the forward gathers each shard's value from before the update
+        stale, real_gather = {}, fsdp.gather_shard
+
+        def gather_stale(t, comm, dim):
+            old = stale.setdefault(id(t), t.detach().clone())
+            return real_gather(old + (t - t.detach()), comm, dim)  # the old value, the live gradient
+
+        patches.append(mock.patch.object(fsdp, "gather_shard", gather_stale))
+    out = {"metrics": [], "grads": [], "trainables": [], "placements": layout.placements}
+    for batch, draws in spec["steps"]:
+        local = _rows(batch, mesh)
+        with contextlib.ExitStack() as stack:
+            for p in patches:
+                stack.enter_context(p)
+            metrics = step(local, _torch_tree(draws))
+        out["metrics"].append({k: float(v) for k, v in metrics.items()})
+        if optimizer.mini_step == 0 and not out["grads"]:
+            out["grads"].append(seen[-1])
+            out["trainables"].append({k: layout.gather(k, p.detach()).clone() for k, p in step.trainable.items()})
+    out["replicated_spread"] = spread[0]
+    return out
+
+
+def _torch_tree(d):
+    import torch
+
+    if d is None or isinstance(d, torch.Generator):
+        return d
+    if isinstance(d, dict):
+        return {k: _torch_tree(v) for k, v in d.items()}
+    if isinstance(d, (int,)):  # a dropout seed: the generator it seeds
+        return torch.Generator().manual_seed(d)
+    return torch.as_tensor(d)
+
+
 def _task_flash(mesh, spec):
     """sharded_flash on this rank's share of the spec's (q, k, v): its heads
     under tensor, its sequence block under spatial; the outputs gathered."""
@@ -192,20 +327,39 @@ def _task_inference(mesh, spec):
 
 def _cli(spec):
     """A CLI's main(argv) on this rank, its process group opened through
-    the spec's file:// store instead of the launcher's address."""
+    the spec's file:// store instead of the launcher's address. With
+    `step_keyed_draws` each micro-step's draws come from a generator seeded
+    by the run's seed plus the micro-step's index since step 0 (a resumed
+    run reseeds with seed + step: the same index), so that a resumed run
+    and an uninterrupted one draw alike."""
+    import contextlib
     import functools
     import importlib
     from unittest import mock
 
+    import torch
+
+    from photoverse_tpu_torch.engine import training as ttr
     from photoverse_tpu_torch.parallel import mesh as pm
 
     cli = importlib.import_module(f"photoverse_tpu_torch.cli.{spec['cli']}")
-    with mock.patch.object(pm, "open_mesh", functools.partial(pm.open_mesh, init_method=spec["init"])):
+    keyed = contextlib.nullcontext()
+    if spec.get("step_keyed_draws"):
+        real, calls = ttr.make_draws, [0]
+
+        def draws(gen, *a, **kw):
+            g = torch.Generator(device=gen.device).manual_seed(1000 + gen.initial_seed() + calls[0])
+            calls[0] += 1
+            return real(g, *a, **kw)
+
+        keyed = mock.patch.object(ttr, "make_draws", draws)
+    with mock.patch.object(pm, "open_mesh", functools.partial(pm.open_mesh, init_method=spec["init"])), keyed:
         cli.main(spec["argv"])
     print(f"[rank] {spec['cli']} returned", flush=True)
 
 
-RANK_TASKS = {"flash": _task_flash, "inference": _task_inference}
+RANK_TASKS = {"flash": _task_flash, "inference": _task_inference, "train": _task_train}
+GRAD_TASKS = ("train",)
 
 
 def rank_main():
@@ -222,7 +376,7 @@ def rank_main():
             continue
         mesh = pm.open_mesh(spec["dp"], spec["mp"], cpu=True, init_method=spec["init"])
         try:
-            with torch.inference_mode():
+            with contextlib.nullcontext() if spec["task"] in GRAD_TASKS else torch.inference_mode():
                 out = RANK_TASKS[spec["task"]](mesh, spec)
             if mesh.rank == 0:
                 torch.save(out, spec["out"])
