@@ -45,9 +45,16 @@ Phases (each one fails the run on error):
      micro-step (batch 8, 4 face rows) without and with remat,
      bit-identical, and with a planted unrestored dropout generator, which
      must differ.
-  8. train-cli: cli/train.py, the user's entry point, with --recipe
-     canonical on an SD-1.5-layout directory written from random numpy-seeded
-     weights and 32 identities as 512px JPEGs: batch 16 as micro-batches of
+  8. train-cli: first the user's files: an SD-1.5-layout directory written
+     from random numpy-seeded weights (scripts/torch_make_random_checkpoint.py),
+     32 identities as 512px JPEGs, and a synthetic archive laid out as the
+     published CelebAMask-HQ zip (100 identities: 1024px photos, 512px label
+     PNGs, a skipped label among them); cli.prepare_celebhqmasks extracts,
+     fuses and splits it, the fused masks must equal a numpy fusion of the
+     same files and the split must be 90/10 with every image beside its own
+     mask. Then cli/train.py, the user's entry point, with --recipe canonical
+     on the prepared train split (--img_subfolder images --mask_subfolder
+     masks): batch 16 as micro-batches of
      8 x 2, remat, the random ArcFace with the fused face window, uint8
      transfer, async checkpoints in both formats every 2 steps, a sample
      grid. SIGTERM once the first stepped checkpoint is on disk (a native
@@ -55,9 +62,9 @@ Phases (each one fails the run on error):
      three steps (the state load_progress returns equal to the state at
      SIGTERM bit for bit), exact launches per micro-step under remat; it
      prints s per optimizer step, peak memory, checkpoint write times, the
-     loader's rate and a profiled step's device-busy share. The model
-     directory and the identities are written once, for this phase and the
-     next.
+     masked loader's rate and a profiled step's device-busy share. The model
+     directory and the files are written once, for this phase and the
+     next ones (phases 9-11 train and generate on the unmasked identities).
   9. identity: on the same directory, (b) cli/generate.py with
      --int8_conditioning --fast in process (512px, batch 2, 10 steps;
      launches exact, torch._int_mm's included; the concept embedding and
@@ -97,6 +104,13 @@ Phases (each one fails the run on error):
      state equal to the state at SIGTERM bit for bit; s per optimizer step,
      peak memory and collectives per micro-step per mode. The kernel phase
      holds kernels 2 and 3 at a TP rank's share of the recipe's shapes.
+ 12. soak: scripts/torch_train_soak.py as child processes on the same model
+     directory and prepared split: cli.train --recipe canonical to step 4,
+     a checkpoint and a sample grid every 2 steps, SIGTERM once step 2 is
+     logged, then a fresh process resumed from the newest native
+     checkpoint. Its record must say ok: the resume neither skips nor
+     repeats a step, the losses are finite and both phases logged the
+     in-train face_similarity.
 The last stdout line is {"ok": true, "device": {...}}; the line before it
 is the per-kernel JSON summary (`launches` from the 50-step generation or
 the training micro-steps, `serve_launches` from the serve phase's first
@@ -767,33 +781,6 @@ def phase_samplers(models):
     return ok
 
 
-def _synthetic_tokenizer(folder: str):
-    """A CLIP-style tokenizer from a small synthetic vocabulary (letters,
-    a few merges, the placeholder, BOS/EOS) written to `folder`, with the
-    text encoder's 77 positions."""
-    from photoverse_tpu_torch.data.tokenizer import CLIPTokenizer
-
-    vocab = {}
-    for c in "abcdefghijklmnopqrstuvwxyz":
-        vocab[c] = len(vocab)
-        vocab[c + "</w>"] = len(vocab)
-    merges = ["p h", "ph o", "pho t", "phot o</w>", "o f</w>", "t h", "th e</w>"]
-    for m in merges:
-        vocab.setdefault(m.replace(" ", ""), len(vocab))
-    vocab["*</w>"] = len(vocab)
-    vocab["<|startoftext|>"] = len(vocab)
-    vocab["<|endoftext|>"] = len(vocab)
-    d = os.path.join(folder, "tokenizer")
-    os.makedirs(d, exist_ok=True)
-    with open(os.path.join(d, "vocab.json"), "w") as f:
-        json.dump(vocab, f)
-    with open(os.path.join(d, "merges.txt"), "w") as f:
-        f.write("#version: 0.2\n" + "\n".join(merges))
-    with open(os.path.join(d, "tokenizer_config.json"), "w") as f:
-        json.dump({"model_max_length": 77}, f)
-    return CLIPTokenizer.from_pretrained(folder)
-
-
 def phase_serve(models):
     """The dynamic-batching service at SD-1.5 width, entered at submit()."""
     import torch
@@ -801,10 +788,11 @@ def phase_serve(models):
     from photoverse_tpu_torch.cli import serve
     from photoverse_tpu_torch.data.prompts import prepare_prompt
     from photoverse_tpu_torch.ops import _build
+    from scripts.torch_make_random_checkpoint import synthetic_tokenizer
 
     torch.cuda.reset_peak_memory_stats()
     with tempfile.TemporaryDirectory() as tmp:
-        tokenizer = _synthetic_tokenizer(tmp)
+        tokenizer = synthetic_tokenizer(tmp)
     flags = ["--model_path", "unused", "--fast", "--resolution", "512"]
     bat = serve.PhotoVerseService(serve.build_parser().parse_args(
         flags + ["--dynamic_batching", "--max_batch", "4", "--batch_wait_ms", "500"]), models=(tokenizer, models))
@@ -1394,76 +1382,22 @@ def phase_train():
     return totals, ok
 
 
-def _write_model_dir(root: str, models) -> float:
-    """A diffusers-layout model directory as `load_models` reads one, from
-    `models`: each model's state dict (the port's names are the diffusers /
-    transformers names) as a `.bin` in its own dtype with its config file,
-    and the DDPM scheduler's config; the caller adds the tokenizer. Returns
-    the weights' size in GiB."""
-    import torch
-
-    t, c, u, v = (models.text_encoder.config, models.vision_encoder.config, models.unet.config,
-                  models.vae.config)
-    parts = {
-        "text_encoder": (models.text_encoder, "pytorch_model.bin", dict(
-            vocab_size=t.vocab_size, hidden_size=t.hidden_size, num_hidden_layers=t.num_layers,
-            num_attention_heads=t.num_heads, intermediate_size=t.intermediate_size,
-            max_position_embeddings=t.max_position_embeddings)),
-        "image_encoder": (models.vision_encoder, "pytorch_model.bin", dict(
-            hidden_size=c.hidden_size, num_hidden_layers=c.num_layers, num_attention_heads=c.num_heads,
-            intermediate_size=c.intermediate_size, image_size=c.image_size, patch_size=c.patch_size)),
-        "vae": (models.vae, "diffusion_pytorch_model.bin", dict(
-            in_channels=v.in_channels, out_channels=v.out_channels, latent_channels=v.latent_channels,
-            block_out_channels=list(v.block_out_channels), layers_per_block=v.layers_per_block,
-            norm_num_groups=v.norm_num_groups, scaling_factor=v.scaling_factor)),
-        # attention_head_dim of an SD-1.5 UNet config is its head count
-        "unet": (models.unet, "diffusion_pytorch_model.bin", dict(
-            in_channels=u.in_channels, out_channels=u.out_channels, block_out_channels=list(u.block_out_channels),
-            layers_per_block=u.layers_per_block, cross_attention_dim=u.cross_attention_dim,
-            attention_head_dim=u.num_heads, norm_num_groups=u.norm_num_groups)),
-    }
-    size = 0
-    for sub, (module, fname, cfg) in parts.items():
-        d = os.path.join(root, sub)
-        os.makedirs(d)
-        torch.save({k: v.detach().cpu() for k, v in module.state_dict().items()}, os.path.join(d, fname))
-        with open(os.path.join(d, "config.json"), "w") as f:
-            json.dump(cfg, f)
-        size += os.path.getsize(os.path.join(d, fname))
-    os.makedirs(os.path.join(root, "scheduler"))
-    with open(os.path.join(root, "scheduler", "scheduler_config.json"), "w") as f:
-        json.dump({"num_train_timesteps": 1000, "beta_start": 0.00085, "beta_end": 0.012,
-                   "beta_schedule": "scaled_linear", "prediction_type": "epsilon", "steps_offset": 1}, f)
-    return size / 2**30
-
-
-def _face_photo(rng, size: int) -> np.ndarray:
-    """A smooth random RGB image: 16x16 noise brought up to `size` by
-    repeating pixels and averaging neighbours."""
-    small = rng.randint(0, 256, (16, 16, 3)).astype(np.float32)
-    big = np.repeat(np.repeat(small, size // 16, axis=0), size // 16, axis=1)
-    for axis in (0, 1):
-        big = (big + np.roll(big, 8, axis=axis)) / 2
-    return big.round().clip(0, 255).astype(np.uint8)
-
-
 def write_user_files(tmp: str):
-    """What a user brings, written once for the train-CLI and identity
-    phases: an SD-1.5-layout model directory of random numpy-seeded bf16
-    weights with the synthetic tokenizer, and 32 identities as 512px JPEGs.
-    Returns (model directory, data root, tokenizer)."""
-    import torch
+    """What a user brings, written once for the train-CLI and later phases:
+    an SD-1.5-layout model directory of random numpy-seeded bf16 weights
+    with the synthetic tokenizer, 32 identities as 512px JPEGs, and a
+    synthetic archive laid out as the published CelebAMask-HQ (100
+    identities, 1024px photos, 512px label masks), all from
+    scripts/torch_make_random_checkpoint.py. Returns (model directory, data root,
+    tokenizer, the archive's save_path)."""
     from PIL import Image
 
-    from photoverse_tpu_torch.models.assembly import build_models, init_params
+    from scripts.torch_make_random_checkpoint import (ARCHIVE_IMAGES, face_photo, make_checkpoint,
+                                                      write_celebahq_archive)
 
     t0 = time.perf_counter()
     root = os.path.join(tmp, "sd15")
-    base_models = init_params(build_models(dtype=torch.bfloat16), seed=0)
-    gib = _write_model_dir(root, base_models)
-    del base_models
-    torch.cuda.empty_cache()
-    tokenizer = _synthetic_tokenizer(root)
+    gib, tokenizer = make_checkpoint(root, "sd15", seed=0)
     log(f"user files: SD-1.5-layout model directory ({gib:.2f} GiB of bf16 .bin, random weights from a numpy "
         f"seed, the synthetic tokenizer) written in {time.perf_counter() - t0:.1f}s")
     # the identities as JPEGs on disk, decoded and resized by the loader
@@ -1472,21 +1406,87 @@ def write_user_files(tmp: str):
     os.makedirs(os.path.join(data, "images"))
     rng = np.random.RandomState(60)
     for i in range(n_ids):
-        Image.fromarray(_face_photo(rng, 512)).save(os.path.join(data, "images", f"{i}.jpg"), quality=95)
+        Image.fromarray(face_photo(rng, 512)).save(os.path.join(data, "images", f"{i}.jpg"), quality=95)
     log(f"user files: {n_ids} identities written as 512px JPEGs")
-    return root, data, tokenizer
+    t0 = time.perf_counter()
+    celeba = os.path.join(tmp, "celeba")
+    zip_path = write_celebahq_archive(celeba)
+    log(f"user files: CelebAMask-HQ-layout archive ({ARCHIVE_IMAGES} identities, "
+        f"{os.path.getsize(zip_path) / 2**20:.1f} MiB) written in {time.perf_counter() - t0:.1f}s")
+    return root, data, tokenizer, celeba
+
+
+def phase_prepare(celeba: str):
+    """cli.prepare_celebhqmasks on the archive: the fused masks against a
+    numpy fusion of the same label files, the 90/10 split with every image
+    beside its own mask. Returns (the train split, ok)."""
+    from PIL import Image
+
+    from photoverse_tpu_torch.cli import prepare_celebhqmasks
+    from photoverse_tpu_torch.data.celebahq import MASKS_LABEL_LIST_CELEBAHQ
+    from scripts.torch_make_random_checkpoint import ARCHIVE_IMAGES
+
+    ok = True
+
+    def check(good, what):
+        nonlocal ok
+        ok &= bool(good)
+        log(f"prepare: {what} {'OK' if good else 'FAIL'}")
+
+    t0 = time.perf_counter()
+    prepare_celebhqmasks.main(["--save_path", celeba, "--num_of_samples", str(ARCHIVE_IMAGES)])
+    log(f"prepare: cli.prepare_celebhqmasks (extract, fuse, split) took {time.perf_counter() - t0:.1f}s")
+    src = os.path.join(celeba, "CelebAMask-HQ")
+    anno = os.path.join(src, "CelebAMask-HQ-mask-anno")
+    # the published fusion: label index + 1, later labels win, four labels skipped
+    skipped = {"ear_r", "neck", "neck_r", "cloth"}
+    wrong, values = [], set()
+    for k in range(ARCHIVE_IMAGES):
+        want = np.zeros((512, 512), np.uint8)
+        for idx, label in enumerate(MASKS_LABEL_LIST_CELEBAHQ):
+            f = os.path.join(anno, str(k // 2000), f"{k:05d}_{label}.png")
+            if label not in skipped and os.path.exists(f):
+                want[np.asarray(Image.open(f).convert("L")) != 0] = idx + 1
+        got = np.asarray(Image.open(os.path.join(src, "masks", f"{k}.png")))
+        values |= set(np.unique(got).tolist())
+        if not np.array_equal(got, want):
+            wrong.append(k)
+    check(not wrong, f"{ARCHIVE_IMAGES} fused masks equal a numpy fusion of the same label PNGs (values "
+          f"{sorted(values)}; the cloth label is skipped)" + (f"; wrong: {wrong[:5]}" if wrong else ""))
+
+    def read(path):
+        with open(path, "rb") as f:
+            return f.read()
+
+    parts = {}
+    for part in ("train", "test"):
+        imgs = sorted(os.listdir(os.path.join(celeba, part, "images")))
+        masks = sorted(os.listdir(os.path.join(celeba, part, "masks")))
+        stems = [n.split(".")[0] for n in imgs]
+        own = stems == [n.split(".")[0] for n in masks] and all(
+            read(os.path.join(celeba, part, "images", f"{s}.jpg")) == read(os.path.join(src, "CelebA-HQ-img",
+                                                                                        f"{s}.jpg"))
+            and read(os.path.join(celeba, part, "masks", f"{s}.png")) == read(os.path.join(src, "masks", f"{s}.png"))
+            for s in stems)
+        parts[part] = (len(imgs), own, set(stems))
+    check(parts["train"][0] == 90 and parts["test"][0] == 10 and all(p[1] for p in parts.values())
+          and parts["train"][2] | parts["test"][2] == {str(k) for k in range(ARCHIVE_IMAGES)},
+          f"split {parts['train'][0]}/{parts['test'][0]} covering all {ARCHIVE_IMAGES} identities, each image and "
+          f"mask byte-equal to its source under the same index")
+    return os.path.join(celeba, "train"), ok
 
 
 def phase_train_cli(smi: str, root: str, data: str, tokenizer):
     """cli/train.py, the user's entry point, at SD-1.5 width with the
-    canonical recipe; SIGTERM at the first stepped checkpoint, then resume."""
+    canonical recipe on the prepared, masked split `data` (images/ and
+    masks/); SIGTERM at the first stepped checkpoint, then resume."""
     import signal
 
     import torch
 
     from photoverse_tpu_torch.ckpt import checkpoint as ck
     from photoverse_tpu_torch.cli import train as cli
-    from photoverse_tpu_torch.data.dataset import BatchLoader, CustomDataset
+    from photoverse_tpu_torch.data.dataset import BatchLoader, CustomDatasetWithMasks
     from photoverse_tpu_torch.engine import training as tr
     from photoverse_tpu_torch.models import assembly
     from photoverse_tpu_torch.models.unet import UNetConfig
@@ -1506,8 +1506,9 @@ def phase_train_cli(smi: str, root: str, data: str, tokenizer):
     with tempfile.TemporaryDirectory() as tmp:
         out1, out2 = os.path.join(tmp, "run1"), os.path.join(tmp, "run2")
         base = ["--recipe", "canonical", "--pretrained_model_name_or_path", root, "--data_root_path", data,
-                "--allow_random_face_model", "--checkpoint_save_steps", "2", "--checkpoint_format", "both",
-                "--seed", "0", "--report_to", "none", "--samples_save_steps", "2"]
+                "--img_subfolder", "images", "--mask_subfolder", "masks", "--allow_random_face_model",
+                "--checkpoint_save_steps", "2", "--checkpoint_format", "both", "--seed", "0", "--report_to", "none",
+                "--samples_save_steps", "2"]
 
         # every TrainStep call (a micro-step) with its launches
         per_step = []
@@ -1679,12 +1680,14 @@ def phase_train_cli(smi: str, root: str, data: str, tokenizer):
         torch.cuda.empty_cache()
 
         # the loader alone, as the CLI builds it (micro-batch 8, 4 workers)
-        ds = CustomDataset(data, tokenizer, size=512, use_random_templates=True, seed=0, uint8_pixels=True)
+        ds = CustomDatasetWithMasks(data, tokenizer, mask_subfolder="masks", size=512, use_random_templates=True,
+                                    seed=0, uint8_pixels=True)
         loader = BatchLoader(ds, 8, shuffle=True, seed=0, num_workers=4)
         t = time.perf_counter()
         n = sum(1 for _ in range(2) for _ in loader)
         rate = n / (time.perf_counter() - t)
-        log(f"train-cli: loader {rate:.3f} batches of 8 a second (Pillow decode and resize, 4 worker threads); "
+        log(f"train-cli: loader {rate:.3f} batches of 8 a second (Pillow decode and resize of 1024px photos, the "
+            f"mask crop, 4 worker threads); "
             f"the train step consumes {2 / float(np.median(steady)):.3f} a second")
 
         with open(os.path.join(out1, "profile", "summary.json")) as f:
@@ -2746,6 +2749,65 @@ def phase_parallel_train(smi: str, root: str, data: str):
     return ok
 
 
+SOAK_TIMEOUT_S = 480
+
+
+def phase_soak(smi: str, root: str, masked: str):
+    """scripts/torch_train_soak.py, the user's soak, as a child process on
+    the model directory and the prepared split: cli.train --recipe canonical
+    to step 4 with a checkpoint and a sample grid every 2 steps, SIGTERM once
+    step 2 is logged, a fresh process resumed from phase A's newest native
+    checkpoint. The record must say ok, with a resume that neither skips nor
+    repeats a step, finite losses and face_similarity rows in both phases."""
+    ok = True
+
+    def check(good, what):
+        nonlocal ok
+        ok &= bool(good)
+        log(f"soak: {what} {'OK' if good else 'FAIL'}")
+
+    with tempfile.TemporaryDirectory() as tmp:
+        path = os.path.join(tmp, "record.json")
+        cmd = [sys.executable, os.path.join(os.path.dirname(os.path.abspath(__file__)), "scripts",
+                                            "torch_train_soak.py"),
+               "--sd", root, "--ds", masked, "--out", tmp, "--record", path,
+               "--steps", "4", "--kill_at", "2", "--boundary", "2", "--phase_timeout", str(SOAK_TIMEOUT_S // 2)]
+        t0 = time.perf_counter()
+        try:
+            proc = subprocess.run(cmd, capture_output=True, text=True, timeout=SOAK_TIMEOUT_S)
+            rc = proc.returncode
+        except subprocess.TimeoutExpired:
+            rc = "timeout"
+        wall = time.perf_counter() - t0
+        for name in ("runA/phaseA.log", "runB/phaseB.log"):
+            log_path = os.path.join(tmp, name)
+            if rc != 0 and os.path.exists(log_path):
+                with open(log_path) as f:
+                    log(f"soak: the end of {name}:\n" + "".join(f.readlines()[-30:]))
+        rec = {}
+        if os.path.exists(path):
+            with open(path) as f:
+                rec = json.load(f)
+    resume, trace, loss = rec.get("resume", {}), rec.get("face_similarity_trace", {}), rec.get("loss_trace", {})
+    check(rc == 0 and rec.get("ok") is True,
+          f"scripts/torch_train_soak.py --steps 4 --kill_at 2 --boundary 2 exit {rc} in {wall:.1f}s, record ok "
+          f"{rec.get('ok')}; masked data {rec.get('recipe', {}).get('masked_data')}")
+    check(resume.get("resume_exact") and resume.get("no_gap_no_repeat") and loss.get("all_finite"),
+          f"SIGTERM at step {resume.get('killed_at_step')}, phase A's checkpoint at step "
+          f"{resume.get('checkpoint_step')}, phase B from step {resume.get('phaseB_first_step')}: no gap, no "
+          f"repeat {resume.get('no_gap_no_repeat')}; losses finite {loss.get('all_finite')}")
+    check(trace.get("count_phaseA", 0) > 0 and trace.get("count_phaseB", 0) > 0,
+          f"face_similarity rows by phase {trace.get('count_phaseA')} / {trace.get('count_phaseB')}: "
+          + ", ".join(f"step {r['step']} {r['face_similarity']:.6g}" for r in trace.get("rows", [])))
+    st = rec.get("step_time", {})
+    log(f"soak: phase A {rec.get('phaseA', {}).get('wall_s', float('nan')):.1f}s "
+        f"({rec.get('phaseA', {}).get('steps_logged')} steps), phase B "
+        f"{rec.get('phaseB', {}).get('wall_s', float('nan')):.1f}s ({rec.get('phaseB', {}).get('steps_logged')} "
+        f"steps), each with its load; steady s per optimizer step A {st.get('phaseA_median')} B "
+        f"{st.get('phaseB_median')} ({smi})")
+    return ok
+
+
 # file:line of each TPU kernel's pallas_call in the JAX package
 TPU_KERNELS = {
     "flash_sdpa": "photoverse_tpu/ops/flash_sdpa.py:154",
@@ -2782,9 +2844,10 @@ def main() -> int:
     train_launches, train_ok = phase_train()
     mark("train")
     with tempfile.TemporaryDirectory() as tmp:
-        root, data, tokenizer = write_user_files(tmp)
-        cli_ok = phase_train_cli(smi, root, data, tokenizer)
-        mark("user files, train-cli")
+        root, data, tokenizer, celeba = write_user_files(tmp)
+        masked, prepare_ok = phase_prepare(celeba)
+        cli_ok = phase_train_cli(smi, root, masked, tokenizer) and prepare_ok
+        mark("user files, prepare, train-cli")
         identity_ok = phase_identity(smi, root, data)
         mark("identity")
         torch.cuda.empty_cache()  # the ranks of the next phase share this card
@@ -2793,6 +2856,9 @@ def main() -> int:
         torch.cuda.empty_cache()
         parallel_train_ok = phase_parallel_train(smi, root, data)
         mark("parallel-train")
+        torch.cuda.empty_cache()  # the soak's training processes share this card
+        soak_ok = phase_soak(smi, root, masked)
+        mark("soak")
     log("phase seconds: " + ", ".join(f"{name} {b - a:.1f}" for (_, a), (name, b) in zip(marks, marks[1:]))
         + f"; total {time.perf_counter() - t_start:.1f}")
     # each kernel's launches from the run of the path it lies on: the
@@ -2801,7 +2867,7 @@ def main() -> int:
     launches = {n: results["g1"]["counts"].get(n, 0) if n in SERVING_KERNELS else train_launches.get(n, 0)
                 for n in TPU_KERNELS}
     ok = (all(r["ok"] for r in rows) and pipe_ok and samplers_ok and serve_ok and train_ok and cli_ok and identity_ok
-          and parallel_ok and parallel_train_ok
+          and parallel_ok and parallel_train_ok and soak_ok
           and all(v > 0 for v in launches.values())
           and all(serve_launches.get(n, 0) > 0 for n in SERVING_KERNELS))
     summary = {"kernels": []}

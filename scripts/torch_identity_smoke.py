@@ -18,7 +18,7 @@ def main() -> int:
     smi = cs.phase_device()
     cs.phase_build()
     with tempfile.TemporaryDirectory() as tmp:
-        root, data, _ = cs.write_user_files(tmp)
+        root, data, _, _ = cs.write_user_files(tmp)
         ok = cs.phase_identity(smi, root, data)
     print("identity phase", "OK" if ok else "FAILED")
     return 0 if ok else 1

@@ -20,7 +20,7 @@ def main() -> int:
     smi = cs.phase_device()
     cs.phase_build()
     with tempfile.TemporaryDirectory() as tmp:
-        root, data, _ = cs.write_user_files(tmp)
+        root, data, _, _ = cs.write_user_files(tmp)
         ok = cs.phase_parallel(smi, root, data)
     print("parallel phase", "OK" if ok else "FAILED")
     return 0 if ok else 1

@@ -26,7 +26,7 @@ def main() -> int:
         rows = cs.phase_kernels(cs.TPU_KERNELS)
         ok = all(r["ok"] for r in rows)
     with tempfile.TemporaryDirectory() as tmp:
-        root, data, _ = cs.write_user_files(tmp)
+        root, data, _, _ = cs.write_user_files(tmp)
         ok = cs.phase_parallel_train(smi, root, data) and ok
     print("parallel-train phase", "OK" if ok else "FAILED")
     return 0 if ok else 1

@@ -13,6 +13,7 @@ from photoverse_tpu_torch.models.facenet import InceptionResnetV1
 from photoverse_tpu_torch.utils.face_similarity import FaceSimilarity
 from photoverse_tpu_torch.utils.mtcnn import MTCNN
 from photoverse_tpu_torch.ops import bounds
+from scripts.torch_make_random_checkpoint import make_checkpoint
 
 
 @pytest.mark.parametrize("fn,shape,gflop,ms", [
@@ -57,7 +58,7 @@ def test_bound_is_the_larger_quotient():
     (build_models, "device"), (ArcFaceResNet18.__init__, "device"),
     (DPMSolverMultistep.step_inputs, "device"), (load_models, "device"), (load_face_loss, "device"),
     (InceptionResnetV1.__init__, "device"), (MTCNN.from_torch_weights, "device"),
-    (FaceSimilarity.__init__, "device"),
+    (FaceSimilarity.__init__, "device"), (make_checkpoint, "device"),
 ])
 def test_entry_points_default_to_the_card(entry, param):
     # the port's entry points run on the card unless the caller asks for

@@ -118,7 +118,11 @@ def test_port_imports_neither_pillow_nor_jax_at_import_time():
             "photoverse_tpu_torch.utils.mtcnn", "photoverse_tpu_torch.models.facenet",
             "photoverse_tpu_torch.ops.quant", "photoverse_tpu_torch.data.native_tokenizer",
             "photoverse_tpu_torch.parallel", "photoverse_tpu_torch.parallel.mesh", "photoverse_tpu_torch.parallel.tp",
-            "photoverse_tpu_torch.parallel.sp", "photoverse_tpu_torch.parallel.flash"]
+            "photoverse_tpu_torch.parallel.sp", "photoverse_tpu_torch.parallel.flash",
+            "photoverse_tpu_torch.data.celebahq", "photoverse_tpu_torch.cli.prepare_celebhqmasks",
+            "photoverse_tpu_torch.cli.create_dataset_json", "photoverse_tpu_torch.convert.manifests",
+            "photoverse_tpu_torch.convert.real_goldens", "scripts.torch_make_random_checkpoint",
+            "scripts.torch_train_soak"]
     code = ("import sys\n" + "".join(f"import {m}\n" for m in mods)
             + "bad = [m for m in ('PIL', 'jax', 'flax', 'photoverse_tpu', 'transformers') if m in sys.modules]\n"
             "assert not bad, bad\n")

@@ -13,7 +13,6 @@ import shutil
 import signal
 from unittest import mock
 
-import chip_smoke
 import jax
 import numpy as np
 import pytest
@@ -37,6 +36,7 @@ from photoverse_tpu_torch.models.assembly import build_models, init_params
 from photoverse_tpu_torch.models.clip import CLIPTextConfig, CLIPVisionConfig
 from photoverse_tpu_torch.models.unet import UNetConfig
 from photoverse_tpu_torch.models.vae import VAEConfig
+from scripts.torch_make_random_checkpoint import write_model_dir
 from tests.test_data import _tiny_tokenizer
 
 # the scalars the JAX CLI logs every optimizer step
@@ -49,8 +49,8 @@ def _tiny_model_dir(root):
     """A diffusers-layout directory at the sizes of
     tests/test_cli_e2e.py:_make_checkpoint (both packages load it), written
     from the port's own modules with random numpy-seeded weights by
-    chip_smoke.py's writer, the one its train-CLI phase uses at SD-1.5
-    width."""
+    scripts/torch_make_random_checkpoint.py's writer, the one chip_smoke.py
+    uses at SD-1.5 width."""
     tok = _tiny_tokenizer(root)
     models = init_params(build_models(
         extra_num_tokens=4, image_encoder_layers_idx=(1, 2, 3, 4),
@@ -62,7 +62,7 @@ def _tiny_model_dir(root):
                                norm_num_groups=8),
         vae_config=VAEConfig(block_out_channels=(16, 32), layers_per_block=2, norm_num_groups=8), device="cpu"),
         seed=0)
-    chip_smoke._write_model_dir(str(root), models)
+    write_model_dir(str(root), models)
     return str(root)
 
 
