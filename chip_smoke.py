@@ -643,7 +643,7 @@ def phase_pipeline(models):
 
     from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
     from photoverse_tpu_torch.engine.inference import run_inference
-    from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils import trace
 
     B, steps, cfg_steps = 2, 50, 10
     example = _example(B, seed=1)
@@ -671,13 +671,13 @@ def phase_pipeline(models):
     results = {}
     ok = True
     for name, guidance, n_steps, atol in (("g1", 1.0, steps, G1_ATOL), ("cfg", 6.0, cfg_steps, CFG_ATOL)):
-        _build.reset_launch_counts()
+        launches0 = trace.counts("launch.")
         imgs, secs = run(n_steps, guidance)
-        counts = dict(_build.launch_counts)
-        _build.reset_launch_counts()
+        counts = trace.since(launches0, "launch.")
+        launches0 = trace.counts("launch.")
         with plain_kernels():
             ref, plain_secs = run(n_steps, guidance)
-        plain_counts = dict(_build.launch_counts)
+        plain_counts = trace.since(launches0, "launch.")
         evals = n_steps
         want = {"flash_sdpa": 10 * evals, "fused_cross_ff": 5 * evals, "flash_sdpa_stream": 1}
         diff = (imgs - ref).abs().max().item()
@@ -716,7 +716,7 @@ def phase_samplers(models):
 
     from photoverse_tpu_torch.core.schedulers import SCHEDULER_NAMES, make_solver
     from photoverse_tpu_torch.engine.inference import run_inference
-    from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils import trace
 
     steps = 10
     example = _example(1, seed=2)
@@ -732,17 +732,17 @@ def phase_samplers(models):
         if solver.is_ancestral:
             kw["ancestral_noise"] = np.random.RandomState(201).randn(
                 solver.num_steps, 1, 64, 64, 4).astype(np.float32)
-        _build.reset_launch_counts()
+        launches0 = trace.counts("launch.")
         torch.cuda.synchronize()
         t = time.perf_counter()
         imgs = run_inference(models, solver, example, **kw)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        counts = dict(_build.launch_counts)
-        _build.reset_launch_counts()
+        counts = trace.since(launches0, "launch.")
+        launches0 = trace.counts("launch.")
         with plain_kernels():
             ref = run_inference(models, solver, example, **kw)
-        plain_counts = dict(_build.launch_counts)
+        plain_counts = trace.since(launches0, "launch.")
         diff = (imgs - ref).abs().max().item()
         sound = (bool(torch.isfinite(imgs).all()) and tuple(imgs.shape) == (1, 512, 512, 3)
                  and bool(imgs.min() >= -1 and imgs.max() <= 1))
@@ -787,7 +787,7 @@ def phase_serve(models):
 
     from photoverse_tpu_torch.cli import serve
     from photoverse_tpu_torch.data.prompts import prepare_prompt
-    from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils import trace
     from scripts.torch_make_random_checkpoint import synthetic_tokenizer
 
     torch.cuda.reset_peak_memory_stats()
@@ -859,9 +859,9 @@ def phase_serve(models):
     serve_counts = {}
     for scheduler in ("dpm", "euler_a"):  # (a) and (b)
         key = (25, 6.0, scheduler)
-        _build.reset_launch_counts()
+        launches0 = trace.counts("launch.")
         pair = fire(bat, [(1, 3, key), (1, 7, key)])
-        counts = dict(_build.launch_counts)
+        counts = trace.since(launches0, "launch.")
         if scheduler == "dpm":
             serve_counts = counts
         failed = [r for r in pair if isinstance(r, BaseException)]
@@ -918,9 +918,9 @@ def phase_serve(models):
     # batch against the same batch on the kernels' plain versions.
     key = (10, 6.0, "dpm")
     before = bat.health()["stats"]
-    _build.reset_launch_counts()
+    launches0 = trace.counts("launch.")
     trio = fire(bat, [(1, s, key) for s in (1, 2, 3)])
-    counts = dict(_build.launch_counts)
+    counts = trace.since(launches0, "launch.")
     after = bat.health()["stats"]
     good = (not any(isinstance(r, BaseException) for r in trio) and [r["batch_rows"] for r in trio] == [3, 3, 3]
             and after["padded_rows"] - before["padded_rows"] == 1 and after["batches"] - before["batches"] == 1
@@ -930,10 +930,10 @@ def phase_serve(models):
     if good:
         solo = [seq.submit(example(1, s), 1, s, key) for s in (1, 2, 3)]
         same = [u8diff(r["images"], q["images"]) for r, q in zip(trio, solo)]
-        _build.reset_launch_counts()
+        launches0 = trace.counts("launch.")
         with plain_kernels():
             plain = fire(bat, [(1, s, key) for s in (1, 2, 3)])
-        plain_counts = dict(_build.launch_counts)
+        plain_counts = trace.since(launches0, "launch.")
         failed = [r for r in plain if isinstance(r, BaseException)]
         vs_plain = [(-1, -1.0)] if failed else [u8diff(r["images"], q["images"]) for r, q in zip(trio, plain)]
         check(all(map(same_image, same)) and not failed and not plain_counts
@@ -1098,8 +1098,8 @@ def phase_train():
     from photoverse_tpu_torch.models.face_loss import FaceLoss, make_face_loss_fn
     from photoverse_tpu_torch.models.unet import UNetConfig
     from photoverse_tpu_torch.models.vae import VAEConfig
-    from photoverse_tpu_torch.ops import _build
     from photoverse_tpu_torch.ops import flash_sdpa as fs
+    from photoverse_tpu_torch.utils import trace
 
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
@@ -1144,13 +1144,13 @@ def phase_train():
         face = (micro + 1) % accum == 0
         batch = _train_batch(B, n_face if face else 0, seed=20 + micro)
         d = draws(100 + micro, face)
-        _build.reset_launch_counts()
+        launches0 = trace.counts("launch.")
         torch.cuda.synchronize()
         t = time.perf_counter()
         metrics = (face_step if face else plain_step)(batch, d)
         torch.cuda.synchronize()
         secs = time.perf_counter() - t
-        counts = dict(_build.launch_counts)
+        counts = trace.since(launches0, "launch.")
         for k, v in counts.items():
             totals[k] = totals.get(k, 0) + v
         want = face_counts if face else main_counts
@@ -1234,10 +1234,10 @@ def phase_train():
         f"median {float(np.median(drift)):.6g} max {max(drift):.6g} over {len(drift)} backward calls")
     del s1
 
-    _build.reset_launch_counts()
+    launches0 = trace.counts("launch.")
     with plain_kernels():
         mp, gp, _ = grads()
-    plain_launches = dict(_build.launch_counts)
+    plain_launches = trace.since(launches0, "launch.")
 
     groups = ("text_adapter", "image_adapter", "unet")
 
@@ -1334,9 +1334,9 @@ def phase_train():
     set_remat(True)
     try:
         torch.cuda.reset_peak_memory_stats()
-        _build.reset_launch_counts()
+        launches0 = trace.counts("launch.")
         mr, gr = grads8()
-        remat_counts = dict(_build.launch_counts)
+        remat_counts = trace.since(launches0, "launch.")
         remat_peak = torch.cuda.max_memory_allocated() / 2**30
         phase_peak = max(phase_peak, peak0)
         want = _train_counts(n_flash, cfg.face_loss_timesteps, face=True, remat=True)
@@ -1490,7 +1490,7 @@ def phase_train_cli(smi: str, root: str, data: str, tokenizer):
     from photoverse_tpu_torch.engine import training as tr
     from photoverse_tpu_torch.models import assembly
     from photoverse_tpu_torch.models.unet import UNetConfig
-    from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils import trace
 
     ok = True
 
@@ -1515,9 +1515,9 @@ def phase_train_cli(smi: str, root: str, data: str, tokenizer):
         real_call = tr.TrainStep.__call__
 
         def counted(self, batch, draws):
-            _build.reset_launch_counts()
+            launches0 = trace.counts("launch.")
             out = real_call(self, batch, draws)
-            per_step.append(("face" if "face_pixel_values" in batch else "diffusion", dict(_build.launch_counts)))
+            per_step.append(("face" if "face_pixel_values" in batch else "diffusion", trace.since(launches0, "launch.")))
             return out
 
         # each checkpoint write's time, in the writer's thread
@@ -1757,7 +1757,8 @@ def phase_identity(smi: str, root: str, data: str):
     from photoverse_tpu_torch.models.arcface import ArcFaceResNet18, init_arcface
     from photoverse_tpu_torch.models.facenet import InceptionResnetV1, init_facenet
     from photoverse_tpu_torch.models.unet import UNetConfig
-    from photoverse_tpu_torch.ops import _build, quant
+    from photoverse_tpu_torch.ops import quant
+    from photoverse_tpu_torch.utils import trace
     from photoverse_tpu_torch.utils.mtcnn import MTCNN
 
     ok = True
@@ -1780,10 +1781,10 @@ def phase_identity(smi: str, root: str, data: str):
 
         def spy(models, solver, example, *a, **kw):
             seen.update(models=models, example=example)
-            _build.reset_launch_counts()
+            launches0 = trace.counts("launch.")
             imgs = real_run(models, solver, example, *a, **kw)
             torch.cuda.synchronize()
-            seen.update(counts=dict(_build.launch_counts), imgs=imgs)
+            seen.update(counts=trace.since(launches0, "launch."), imgs=imgs)
             return imgs
 
         results = os.path.join(tmp, "generated")
@@ -1822,11 +1823,11 @@ def phase_identity(smi: str, root: str, data: str):
         hook = models.text_encoder.encoder.layers[0].mlp.fc1.register_forward_hook(
             lambda m, inp, out: fc1_in.append(inp[0]))
         with torch.no_grad():
-            _build.reset_launch_counts()
+            launches0 = trace.counts("launch.")
             v8 = models.vision_encoder(px, collect_layers=layers)
             t8 = models.text_encoder(ids)[0]
             torch.cuda.synchronize()
-            int8_launches = _build.launch_counts["int8_matmul"]
+            int8_launches = trace.since(launches0, "launch.").get("int8_matmul", 0)
             hook.remove()
             with bf16_route():
                 vb = models.vision_encoder(px, collect_layers=layers)
@@ -1906,9 +1907,9 @@ def phase_identity(smi: str, root: str, data: str):
         body = {"image_path": photo, "prompt": "a photo of a {}", "num_samples": 1, "steps": 10,
                 "guidance_scale": 1.0, "seed": 5}
         req, n, seed, key = svc._prepare(body)
-        _build.reset_launch_counts()
+        launches0 = trace.counts("launch.")
         res = svc.submit(req, n, seed, key)
-        served = dict(_build.launch_counts)
+        served = trace.since(launches0, "launch.")
         want = dict(_serving_counts(10), int8_matmul=per_layer * (t.num_layers + v.num_layers))
         check(isinstance(svc.tokenizer, NativeCLIPTokenizer) and res["images"].shape == (1, 512, 512, 3)
               and res["images"].dtype == np.uint8 and np.array_equal(req["text_input_ids"][0], py("a photo of a *")[0])
@@ -1924,9 +1925,9 @@ def phase_identity(smi: str, root: str, data: str):
         real_call = tr.TrainStep.__call__
 
         def counted(self, batch, draws):
-            _build.reset_launch_counts()
+            launches0 = trace.counts("launch.")
             out = real_call(self, batch, draws)
-            per_step.append(("face" if "face_pixel_values" in batch else "diffusion", dict(_build.launch_counts)))
+            per_step.append(("face" if "face_pixel_values" in batch else "diffusion", trace.since(launches0, "launch.")))
             return out
 
         out = os.path.join(tmp, "facenet_run")
@@ -2105,7 +2106,7 @@ def _rank_generate(job: dict) -> dict:
 
     from photoverse_tpu_torch.cli import generate as gen
     from photoverse_tpu_torch.engine import inference as inf
-    from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils import trace
     from photoverse_tpu_torch.utils.image import denormalize, to_pil
 
     real = inf.run_inference_sharded
@@ -2129,13 +2130,13 @@ def _rank_generate(job: dict) -> dict:
         seconds = []
         for i in range(2):  # the first run warms this rank up
             torch.cuda.synchronize()
-            _build.reset_launch_counts()
+            launches0 = trace.counts("launch.")
             t0 = time.perf_counter()
             images = real(models, solver, example, fresh(), mesh, spatial, **kw)
             torch.cuda.synchronize()
             seconds.append(time.perf_counter() - t0)
             if i == 0:
-                rec["counts"] = dict(_build.launch_counts)
+                rec["counts"] = trace.since(launches0, "launch.")
                 models.unet.set_config(cfg)
         if captured:
             rec["wrapper"] = _hold_wrapper(mesh.model_comm, *captured.pop())
@@ -2239,7 +2240,7 @@ def phase_parallel(smi: str, root: str, data: str):
     from photoverse_tpu_torch.cli import serve
     from photoverse_tpu_torch.data.tokenizer import CLIPTokenizer
     from photoverse_tpu_torch.engine import inference as inf
-    from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils import trace
 
     ok = True
 
@@ -2266,11 +2267,11 @@ def phase_parallel(smi: str, root: str, data: str):
 
         def spy(models, *a, **kw):
             torch.cuda.synchronize()
-            _build.reset_launch_counts()
+            launches0 = trace.counts("launch.")
             t0 = time.perf_counter()
             imgs = real(models, *a, **kw)
             torch.cuda.synchronize()
-            seen.update(counts=dict(_build.launch_counts), seconds=time.perf_counter() - t0, models=models)
+            seen.update(counts=trace.since(launches0, "launch."), seconds=time.perf_counter() - t0, models=models)
             return imgs
 
         t0 = time.perf_counter()
@@ -2463,7 +2464,7 @@ def _rank_train(job: dict, loaded: dict, memo: dict) -> dict:
     from photoverse_tpu_torch.cli import train as cli
     from photoverse_tpu_torch.engine import training as tr
     from photoverse_tpu_torch.models import layers, unet
-    from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils import trace
     from photoverse_tpu_torch.parallel import fsdp, mesh as pm, training as ptr
 
     rec = {"counts": [], "collectives": []}
@@ -2492,11 +2493,11 @@ def _rank_train(job: dict, loaded: dict, memo: dict) -> dict:
             # the first diffusion micro-step's inputs, kept for the checks after the run
             first.update(step=self, batch=batch, draws=fresh(draws), cfg=self.cfg)
         torch.cuda.synchronize()
-        _build.reset_launch_counts()
+        launches0 = trace.counts("launch.")
         calls.clear()
         out = real_call(self, batch, draws)
         torch.cuda.synchronize()
-        rec["counts"].append(("face" if "face_pixel_values" in batch else "diffusion", dict(_build.launch_counts)))
+        rec["counts"].append(("face" if "face_pixel_values" in batch else "diffusion", trace.since(launches0, "launch.")))
         rec["collectives"].append(dict(calls))
         moved["n"] += 1
         if job.get("sigterm_at") == moved["n"] and layout.mesh.rank == 1:

@@ -37,8 +37,8 @@ Device use, both modes:
     the next batch's kernels. A request's latency_s spans dispatch to
     fetch-complete, so it includes time queued behind the batch in flight.
   * torch.inference_mode and the current CUDA device are per thread: the
-    worker enters them itself. The kernel wrappers, their launch counters
-    and the kernels' tensor-map cache are entered by one thread at a time:
+    worker enters them itself. The kernel wrappers and the kernels'
+    tensor-map cache are entered by one thread at a time:
     the worker thread under --dynamic_batching, else whichever caller holds
     the sequential service's lock. The kernels are built in the
     constructor, before any thread starts.
@@ -82,12 +82,15 @@ import argparse
 import base64
 import contextlib
 import io
+import itertools
 import json
 import os
 import threading
 import time
 from collections import deque
 from http.server import BaseHTTPRequestHandler, HTTPServer, ThreadingHTTPServer
+
+from photoverse_tpu_torch.utils import trace
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -154,9 +157,9 @@ class _Pending:
     """One enqueued request awaiting the device-worker thread."""
 
     __slots__ = ("example", "n", "seed", "key", "event", "images",
-                 "error", "latency_s", "batch_rows", "enqueued")
+                 "error", "latency_s", "batch_rows", "enqueued", "request", "queued")
 
-    def __init__(self, example, n, seed, key):
+    def __init__(self, example, n, seed, key, request):
         self.example = example
         self.n = n
         self.seed = seed
@@ -166,7 +169,17 @@ class _Pending:
         self.error = None
         self.latency_s = 0.0
         self.batch_rows = n
-        self.enqueued = time.monotonic()
+        self.request = request  # the service's request number
+        self.queued = trace.span("queued", request=request)  # ends when the worker takes it
+        self.enqueued = time.perf_counter()
+
+
+def _bucket(rows: int) -> int:
+    """The power-of-two batch that `rows` rows are padded to."""
+    bucket = 1
+    while bucket < rows:
+        bucket *= 2
+    return bucket
 
 
 class _Pipeline:
@@ -308,6 +321,9 @@ class PhotoVerseService:
         self._max_inflight = 1
         self._stats = {"requests": 0, "batches": 0, "rows": 0,
                        "padded_rows": 0, "rejected": 0}
+        # numbers of the requests and batches in the spans (utils/trace.py)
+        self._request_ids = itertools.count()
+        self._batch_ids = itertools.count()
         if args.dynamic_batching:
             self._queue = deque()
             threading.Thread(
@@ -490,6 +506,8 @@ class PhotoVerseService:
                     self._qcond.wait()
                 first = self._queue.popleft()
                 self._active += 1
+            coalesce = trace.span("coalesce")
+            first.queued.end()
             group = [first]
             rows = first.n
             # the wait window opens when the request arrived, not when the
@@ -506,15 +524,20 @@ class PhotoVerseService:
                     if take is not None:
                         self._queue.remove(take)
                     else:
-                        remaining = deadline - time.monotonic()
+                        remaining = deadline - time.perf_counter()
                         if remaining <= 0:
                             break
                         self._qcond.wait(timeout=remaining)
                         continue
+                take.queued.end()
                 group.append(take)
                 rows += take.n
+            ids = {"batch": next(self._batch_ids), "rows": rows, "bucket": _bucket(rows),
+                   "requests": [g.request for g in group]}
+            coalesce.end(**ids)
             try:
-                entry = self._dispatch_group(group, rows)
+                with trace.span("dispatch", **ids):
+                    entry = self._dispatch_group(group, rows)
             except BaseException as e:  # noqa: BLE001 - deliver the failure to every waiter
                 for g in group:
                     g.error = e
@@ -529,10 +552,10 @@ class PhotoVerseService:
             # hand the batch in flight to the completion thread and go on
             # to coalesce the next one; bounded, so a slow fetch applies
             # backpressure instead of queueing device work without bound
-            with self._inflight_cond:
+            with trace.span("inflight_wait", **ids), self._inflight_cond:
                 while len(self._inflight) > self._max_inflight:
                     self._inflight_cond.wait()
-                self._inflight.append(entry)
+                self._inflight.append((*entry, ids))
                 self._inflight_cond.notify_all()
 
     def _completion_loop(self):
@@ -543,12 +566,13 @@ class PhotoVerseService:
             with self._inflight_cond:
                 while not self._inflight:
                     self._inflight_cond.wait()
-                group, rows, bucket, host_images, event, t0 = self._inflight.popleft()
+                group, rows, bucket, host_images, event, t0, ids = self._inflight.popleft()
                 self._inflight_cond.notify_all()
             try:
-                if event is not None:
-                    event.synchronize()  # an asynchronous device failure surfaces here
-                images = host_images.numpy()
+                with trace.span("device_wait", **ids):
+                    if event is not None:
+                        event.synchronize()  # an asynchronous device failure surfaces here
+                    images = host_images.numpy()
             except BaseException as e:  # noqa: BLE001 - delivered; only an Exception is survived
                 for g in group:
                     g.error = e
@@ -558,17 +582,18 @@ class PhotoVerseService:
                 self.thread_errors.append(e)
             else:
                 latency = time.perf_counter() - t0
-                with self._state_lock:
-                    self._stats["batches"] += 1
-                    self._stats["rows"] += rows
-                    self._stats["padded_rows"] += bucket - rows
-                off = 0
-                for g in group:
-                    g.images = images[off:off + g.n]
-                    g.latency_s = latency
-                    g.batch_rows = rows
-                    off += g.n
-                    g.event.set()
+                with trace.span("deliver", **ids):
+                    with self._state_lock:
+                        self._stats["batches"] += 1
+                        self._stats["rows"] += rows
+                        self._stats["padded_rows"] += bucket - rows
+                    off = 0
+                    for g in group:
+                        g.images = images[off:off + g.n]
+                        g.latency_s = latency
+                        g.batch_rows = rows
+                        off += g.n
+                        g.event.set()
             finally:
                 with self._qcond:
                     self._active -= 1
@@ -619,9 +644,7 @@ class PhotoVerseService:
         import numpy as np
         import torch
 
-        bucket = 1
-        while bucket < rows:
-            bucket *= 2
+        bucket = _bucket(rows)
         steps, guidance, scheduler = group[0].key
         pipe = self._pipeline(bucket, steps, guidance, scheduler)
 
@@ -725,31 +748,35 @@ class PhotoVerseService:
         "batch_rows"}; raises ServiceOverloaded when the queue is full."""
         with self._state_lock:
             self._stats["requests"] += 1
-        if self._queue is not None:
-            pending = _Pending(example, n, seed, key)
-            with self._qcond:
-                if self._dead is not None:
-                    raise RuntimeError(f"a service thread died: {self._dead!r}")
-                if self._overloaded():
-                    self._reject()
-                self._queue.append(pending)
-                self._qcond.notify_all()
-            pending.event.wait()
-            if pending.error is not None:
-                raise pending.error
-            return {"images": pending.images, "latency_s": pending.latency_s,
-                    "batch_rows": pending.batch_rows}
-        steps, guidance, scheduler = key
-        pipe = self._pipeline(n, steps, guidance, scheduler)
-        with self._sequential_lock:
-            t0 = time.perf_counter()
-            host, event = self._run(example, self._make_noise(seed, n),
-                                    self._make_row_noise(seed, n, pipe.solver), pipe)
-            if event is not None:
-                event.synchronize()
-            images = host.numpy()
-            latency = time.perf_counter() - t0
-        return {"images": images, "latency_s": latency, "batch_rows": n}
+        request = next(self._request_ids)
+        with trace.span("request", request=request):
+            if self._queue is not None:
+                with self._qcond:
+                    if self._dead is not None:
+                        raise RuntimeError(f"a service thread died: {self._dead!r}")
+                    if self._overloaded():
+                        self._reject()
+                    pending = _Pending(example, n, seed, key, request)
+                    self._queue.append(pending)
+                    self._qcond.notify_all()
+                pending.event.wait()
+                if pending.error is not None:
+                    raise pending.error
+                return {"images": pending.images, "latency_s": pending.latency_s,
+                        "batch_rows": pending.batch_rows}
+            steps, guidance, scheduler = key
+            pipe = self._pipeline(n, steps, guidance, scheduler)
+            with self._sequential_lock:
+                t0 = time.perf_counter()
+                with trace.span("dispatch", request=request, rows=n, bucket=n):
+                    host, event = self._run(example, self._make_noise(seed, n),
+                                            self._make_row_noise(seed, n, pipe.solver), pipe)
+                with trace.span("device_wait", request=request):
+                    if event is not None:
+                        event.synchronize()
+                    images = host.numpy()
+                latency = time.perf_counter() - t0
+            return {"images": images, "latency_s": latency, "batch_rows": n}
 
     def generate(self, req: dict) -> dict:
         from PIL import Image

@@ -56,6 +56,8 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 
+from photoverse_tpu_torch.utils import trace
+
 # --recipe presets, applied as argparse defaults (explicit flags still win):
 # the JAX package's canonical recipe
 RECIPE_PRESETS = {
@@ -366,10 +368,15 @@ def _save_samples(args, models, tokenizer, solver, batch, step, writer, latent_s
 class _Profiler:
     """torch.profiler over the optimizer steps [start, stop): the chrome
     trace, a table of the operations by device (or, on the CPU, host)
-    time, and summary.json (the window's wall time, the device's busy time
-    and its largest operations) go to output_dir/profile."""
+    time, summary.json (the window's wall time, the device's busy time
+    and its largest operations) and spans.json (the spans and counters of
+    utils/trace.py over the window, in seconds of time.perf_counter, with
+    `anchor_host`, the host time at which the marker kernel `spin_kernel`
+    was launched: its launch's time in the trace ties the two clocks) go
+    to output_dir/profile."""
 
     def __init__(self, output_dir: str, on_card: bool):
+        import torch
         import torch.profiler as tp
 
         acts = [tp.ProfilerActivity.CPU] + ([tp.ProfilerActivity.CUDA] if on_card else [])
@@ -377,6 +384,13 @@ class _Profiler:
         self.on_card = on_card
         self.prof = tp.profile(activities=acts)
         self.prof.start()
+        self.anchor = None
+        if on_card:
+            torch.cuda.synchronize()
+            self.anchor = time.perf_counter()
+            torch.cuda._sleep(1000)
+            torch.cuda.synchronize()
+        trace.enable()
         self.t0 = time.perf_counter()
 
     def stop(self):
@@ -385,26 +399,21 @@ class _Profiler:
         if self.on_card:
             torch.cuda.synchronize()
         wall = time.perf_counter() - self.t0
+        program = trace.take()
         self.prof.stop()
         t = time.perf_counter()
         os.makedirs(self.dir, exist_ok=True)
-        trace = os.path.join(self.dir, "trace.json")
-        self.prof.export_chrome_trace(trace)
+        path = os.path.join(self.dir, "trace.json")
+        self.prof.export_chrome_trace(path)
+        with open(os.path.join(self.dir, "spans.json"), "w") as f:
+            json.dump({"anchor_host": self.anchor, "marker": "spin_kernel", **program}, f)
         # the table and the summary are read back from the exported trace:
         # the profiler's own event list (key_averages, events) is built in
         # Python and takes tens of seconds over one step's 26,000 launches
-        with open(trace) as f:
+        with open(path) as f:
             events = [e for e in json.load(f).get("traceEvents", []) if e.get("ph") == "X" and "dur" in e]
-        # device work: kernels, copies and sets, not the annotations that
-        # mirror host ranges on the device's timeline; busy is the union of
-        # their intervals
-        kernels = [e for e in events if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")]
-        busy, end = 0.0, float("-inf")
-        for a, b in sorted((float(e["ts"]), float(e["ts"]) + float(e["dur"])) for e in kernels):
-            if b > end:
-                busy += b - max(a, end)
-                end = b
-        busy /= 1e6
+        kernels = [e for e in events if e.get("cat") in trace.DEVICE_CATS]
+        busy = trace.union_length(trace.device_intervals(kernels))
 
         def by_name(evs) -> list:  # [name, total ms, count], largest first
             out: Dict[str, list] = {}

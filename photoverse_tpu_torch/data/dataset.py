@@ -29,6 +29,7 @@ from photoverse_tpu_torch.data.preprocessing import (
     preprocess_image_u8,
 )
 from photoverse_tpu_torch.data.prompts import IMAGENET_TEMPLATES_SMALL, prepare_prompt
+from photoverse_tpu_torch.utils import trace
 
 __all__ = ["CustomDataset", "CustomDatasetWithMasks", "collate_fn", "BatchLoader"]
 
@@ -256,7 +257,8 @@ class BatchLoader:
             nxt = 0
             received = 0
             while received < n_batches:
-                b, batch = q.get()
+                with trace.span("loader_wait", epoch_start=received == 0):
+                    b, batch = q.get()
                 if b < 0:
                     raise batch
                 pending[b] = batch

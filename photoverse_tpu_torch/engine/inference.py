@@ -49,6 +49,7 @@ from photoverse_tpu_torch.ops.fused_block import (
     bundle_eligible,
     kernel_serves,
 )
+from photoverse_tpu_torch.utils import trace
 
 __all__ = [
     "encode_condition",
@@ -187,77 +188,79 @@ def denoise(
     With `spatial`, `latents` (and the latents returned) are this rank's
     block of rows; `ancestral_noise` is whole, or drawn whole from
     `row_generators`, and cut to the same rows."""
-    use_cfg = guidance_scale != 1.0 and uncond_text_ctx is not None
-    if train and num_grad_steps > 0 and (step_draws is None or len(step_draws) < num_grad_steps):
-        raise ValueError("train=True grad steps need one step_draws entry per grad step")
-    n = solver.num_steps
-    B = latents.shape[0]
-    if solver.is_ancestral:
-        if ancestral_noise is None:
-            if row_generators is None or len(row_generators) != B:
-                raise ValueError(
-                    "an ancestral solver (noise per step) needs ancestral_noise (N, B, h, w, C) "
-                    "or one generator per batch row, so that a row's trajectory does not depend "
-                    "on its batch (run_inference derives the generators from its own)"
-                )
-            whole = list(latents.shape[1:])
-            if spatial is not None:
-                whole[0] *= spatial.size
-            ancestral_noise = draw_ancestral_noise(row_generators, n, whole, latents.device)
-        if spatial is not None:
-            ancestral_noise = spatial.rows(ancestral_noise, 2)
-        if tuple(ancestral_noise.shape) != (n, *latents.shape):
-            raise ValueError(f"ancestral_noise is {tuple(ancestral_noise.shape)}, want {(n, *latents.shape)}")
-    if use_cfg:
-        text_ctx = torch.cat([uncond_text_ctx, text_ctx], dim=0)
-        id_ctx = torch.cat([uncond_id_ctx, id_ctx], dim=0)
-        if ip_mask is not None:
-            ip_mask = torch.cat([ip_mask, ip_mask], dim=0)
-    # the prefix never carries gradients when grad steps follow it
-    prefix_mode = torch.no_grad() if num_grad_steps > 0 else contextlib.nullcontext()
-    with prefix_mode:
-        kv_cache = precompute_ctx_kv(models, text_ctx, id_ctx)
-    fused = None
-    # the UNet drops the bundles under grad and with a mask
-    if models.unet.config.fused_blocks and num_grad_steps == 0 and ip_mask is None:
-        fused = precompute_fused_bundles(models, kv_cache)
-
-    def eps_fn(lat, t, grad_step=None):
-        x = torch.cat([lat, lat], dim=0) if use_cfg else lat
-        t = t.expand(x.shape[0])
-        if grad_step is None:
-            eps, _ = models.unet(x, t, text_ctx, id_ctx, ctx_kv=kv_cache, fused_bundles=fused,
-                                 ip_mask=ip_mask)
-        else:  # recompute the context K/V so gradients reach their projections
-            kw = {}
-            if train:
-                d = step_draws[grad_step]
-                kw = dict(train=True, fusion_u=d["fusion_u"], dropout_generator=d.get("dropout"))
-            eps, _ = models.unet(x, t, text_ctx, id_ctx, ip_mask=ip_mask, **kw)
-        if use_cfg:
-            eps_u, eps_c = eps.chunk(2, dim=0)
-            eps = eps_u + guidance_scale * (eps_c - eps_u)
-        return eps
-
-    steps = solver.step_inputs(latents.device)
-
-    def advance(i, carry, grad_step=None):
-        step = {k: v[i] for k, v in steps.items()}
-        carry = solver.advance(step, carry, eps_fn(solver.latent(carry), step["t"], grad_step))
+    with trace.span("denoise"):
+        use_cfg = guidance_scale != 1.0 and uncond_text_ctx is not None
+        if train and num_grad_steps > 0 and (step_draws is None or len(step_draws) < num_grad_steps):
+            raise ValueError("train=True grad steps need one step_draws entry per grad step")
+        n = solver.num_steps
+        B = latents.shape[0]
         if solver.is_ancestral:
-            lat = solver.latent(carry)
-            lat = lat + step["noise_sigma"].to(lat.dtype) * ancestral_noise[i].to(lat.dtype)
-            carry = solver.replace_latent(carry, lat)
-        return carry
+            if ancestral_noise is None:
+                if row_generators is None or len(row_generators) != B:
+                    raise ValueError(
+                        "an ancestral solver (noise per step) needs ancestral_noise (N, B, h, w, C) "
+                        "or one generator per batch row, so that a row's trajectory does not depend "
+                        "on its batch (run_inference derives the generators from its own)"
+                    )
+                whole = list(latents.shape[1:])
+                if spatial is not None:
+                    whole[0] *= spatial.size
+                ancestral_noise = draw_ancestral_noise(row_generators, n, whole, latents.device)
+            if spatial is not None:
+                ancestral_noise = spatial.rows(ancestral_noise, 2)
+            if tuple(ancestral_noise.shape) != (n, *latents.shape):
+                raise ValueError(f"ancestral_noise is {tuple(ancestral_noise.shape)}, want {(n, *latents.shape)}")
+        if use_cfg:
+            text_ctx = torch.cat([uncond_text_ctx, text_ctx], dim=0)
+            id_ctx = torch.cat([uncond_id_ctx, id_ctx], dim=0)
+            if ip_mask is not None:
+                ip_mask = torch.cat([ip_mask, ip_mask], dim=0)
+        # the prefix never carries gradients when grad steps follow it
+        prefix_mode = torch.no_grad() if num_grad_steps > 0 else contextlib.nullcontext()
+        with prefix_mode:
+            kv_cache = precompute_ctx_kv(models, text_ctx, id_ctx)
+        fused = None
+        # the UNet drops the bundles under grad and with a mask
+        if models.unet.config.fused_blocks and num_grad_steps == 0 and ip_mask is None:
+            fused = precompute_fused_bundles(models, kv_cache)
 
-    n_prefix = max(n - num_grad_steps, 0)
-    carry = solver.init_carry(latents)
-    with prefix_mode:
-        for i in range(n_prefix):
-            carry = advance(i, carry)
-    for i in range(n_prefix, n):
-        carry = advance(i, carry, i - n_prefix)
-    return solver.latent(carry)
+        def eps_fn(lat, t, grad_step=None):
+            x = torch.cat([lat, lat], dim=0) if use_cfg else lat
+            t = t.expand(x.shape[0])
+            if grad_step is None:
+                eps, _ = models.unet(x, t, text_ctx, id_ctx, ctx_kv=kv_cache, fused_bundles=fused,
+                                     ip_mask=ip_mask)
+            else:  # recompute the context K/V so gradients reach their projections
+                kw = {}
+                if train:
+                    d = step_draws[grad_step]
+                    kw = dict(train=True, fusion_u=d["fusion_u"], dropout_generator=d.get("dropout"))
+                eps, _ = models.unet(x, t, text_ctx, id_ctx, ip_mask=ip_mask, **kw)
+            if use_cfg:
+                eps_u, eps_c = eps.chunk(2, dim=0)
+                eps = eps_u + guidance_scale * (eps_c - eps_u)
+            return eps
+
+        steps = solver.step_inputs(latents.device)
+
+        def advance(i, carry, grad_step=None):
+            with trace.span("unet_step"):
+                step = {k: v[i] for k, v in steps.items()}
+                carry = solver.advance(step, carry, eps_fn(solver.latent(carry), step["t"], grad_step))
+                if solver.is_ancestral:
+                    lat = solver.latent(carry)
+                    lat = lat + step["noise_sigma"].to(lat.dtype) * ancestral_noise[i].to(lat.dtype)
+                    carry = solver.replace_latent(carry, lat)
+                return carry
+
+        n_prefix = max(n - num_grad_steps, 0)
+        carry = solver.init_carry(latents)
+        with prefix_mode:
+            for i in range(n_prefix):
+                carry = advance(i, carry)
+        for i in range(n_prefix, n):
+            carry = advance(i, carry, i - n_prefix)
+        return solver.latent(carry)
 
 
 @torch.inference_mode()
@@ -344,30 +347,32 @@ def run_inference(
     if ip_mask is not None:
         ip_mask = torch.as_tensor(ip_mask, device=dev).float()
 
-    concept, id_ctx = encode_condition(models, px_clip, token_index)
-    text_ctx, _ = models.text_encoder(ids, concept, pidx.reshape(B))
+    with trace.span("conditioning"):
+        concept, id_ctx = encode_condition(models, px_clip, token_index)
+        text_ctx, _ = models.text_encoder(ids, concept, pidx.reshape(B))
 
-    uncond_text_ctx = uncond_id_ctx = None
-    if guidance_scale != 1.0:
-        neg = example.get("negative_text_input_ids")
-        if neg is None:
-            neg = uncond_input_ids
-        if neg is None:
-            raise ValueError(
-                "guidance_scale != 1 requires negative_text_input_ids or "
-                "uncond_input_ids (tokenized empty prompt)"
-            )
-        _, uncond_id_ctx = encode_condition(models, torch.zeros_like(px_clip), token_index)
-        uncond_text_ctx, _ = models.text_encoder(torch.as_tensor(neg, device=dev).long())
+        uncond_text_ctx = uncond_id_ctx = None
+        if guidance_scale != 1.0:
+            neg = example.get("negative_text_input_ids")
+            if neg is None:
+                neg = uncond_input_ids
+            if neg is None:
+                raise ValueError(
+                    "guidance_scale != 1 requires negative_text_input_ids or "
+                    "uncond_input_ids (tokenized empty prompt)"
+                )
+            _, uncond_id_ctx = encode_condition(models, torch.zeros_like(px_clip), token_index)
+            uncond_text_ctx, _ = models.text_encoder(torch.as_tensor(neg, device=dev).long())
 
     latents = denoise(
         models, solver, latents, text_ctx, id_ctx, uncond_text_ctx, uncond_id_ctx, guidance_scale,
         ip_mask=ip_mask, ancestral_noise=ancestral_noise, row_generators=row_generators, spatial=spatial,
     )
-    images = models.vae.decode(latents / models.scaling_factor)
-    if spatial is not None:
-        images = spatial.gather_rows(images, 1)
-    return images.clamp(-1.0, 1.0)
+    with trace.span("decode"):
+        images = models.vae.decode(latents / models.scaling_factor)
+        if spatial is not None:
+            images = spatial.gather_rows(images, 1)
+        return images.clamp(-1.0, 1.0)
 
 
 _ROW_KEYS = ("pixel_values", "pixel_values_clip", "text_input_ids", "concept_placeholder_idx",

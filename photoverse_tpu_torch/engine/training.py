@@ -49,6 +49,7 @@ import torch
 from photoverse_tpu_torch.ckpt.checkpoint import _host, partition_params
 from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
 from photoverse_tpu_torch.engine.inference import denoise, encode_condition
+from photoverse_tpu_torch.utils import trace
 
 __all__ = [
     "TrainConfig",
@@ -268,7 +269,8 @@ def make_draws(generator: torch.Generator, batch_size: int, latent_size: int,
         if with_t:
             d["timesteps"] = torch.randint(0, num_train_timesteps, (n,), generator=generator, device=dev)
         d["fusion_u"] = torch.rand(num_cross_layers, generator=generator, device=dev)
-        seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=dev).item())
+        with trace.span("sync"):  # the seed comes to the host: waits for the device's queue
+            seed = int(torch.randint(0, 2**62, (1,), generator=generator, device=dev).item())
         d["dropout"] = torch.Generator(device=dev).manual_seed(seed)
         return d
 
@@ -331,24 +333,25 @@ class TrainStep:
         """`batch` holds this rank's rows, `draws` the whole micro-batch's
         (the same on every rank)."""
         m, cfg, layout = self.models, self.cfg, self.layout
-        batch = self._tensors(batch)
-        if layout is not None:
-            draws = layout.local_draws(draws, len(batch["pixel_values"]),
-                                       len(batch["face_pixel_values"]) if "face" in draws else 0)
-        with torch.no_grad():
-            latents = m.vae.encode_sample(batch["pixel_values"], draws["vae_noise"]) * m.scaling_factor
-        noise = draws["noise"].to(latents.dtype)
-        t = draws["timesteps"]
-        noisy = m.schedule.add_noise(latents, noise, t)
-        concept, id_ctx = encode_condition(m, batch["pixel_values_clip"], token_index=None)
-        text_ctx = self._text(batch["text_input_ids"], concept, batch["concept_placeholder_idx"])
-        eps_pred, v_norms = m.unet(noisy, t, text_ctx, id_ctx, train=True,
-                                   fusion_u=draws["fusion_u"], dropout_generator=draws["dropout"])
-        diffusion = (eps_pred.float() - noise.float()).square().mean()
-        concept_reg = concept.float().abs().mean()
-        visual_reg = v_norms.float().mean()
-        if layout is not None:  # the mean over every head: the model group's local means, averaged
-            visual_reg = layout.model_mean(visual_reg)
+        with trace.span("forward"):
+            batch = self._tensors(batch)
+            if layout is not None:
+                draws = layout.local_draws(draws, len(batch["pixel_values"]),
+                                           len(batch["face_pixel_values"]) if "face" in draws else 0)
+            with torch.no_grad():
+                latents = m.vae.encode_sample(batch["pixel_values"], draws["vae_noise"]) * m.scaling_factor
+            noise = draws["noise"].to(latents.dtype)
+            t = draws["timesteps"]
+            noisy = m.schedule.add_noise(latents, noise, t)
+            concept, id_ctx = encode_condition(m, batch["pixel_values_clip"], token_index=None)
+            text_ctx = self._text(batch["text_input_ids"], concept, batch["concept_placeholder_idx"])
+            eps_pred, v_norms = m.unet(noisy, t, text_ctx, id_ctx, train=True,
+                                       fusion_u=draws["fusion_u"], dropout_generator=draws["dropout"])
+            diffusion = (eps_pred.float() - noise.float()).square().mean()
+            concept_reg = concept.float().abs().mean()
+            visual_reg = v_norms.float().mean()
+            if layout is not None:  # the mean over every head: the model group's local means, averaged
+                visual_reg = layout.model_mean(visual_reg)
         floss = torch.zeros((), device=latents.device)
         if self.face_loss_fn is not None:
             floss = self._face_loss(batch, draws["face"])
@@ -369,33 +372,39 @@ class TrainStep:
         """In-training generation on the face sub-batch, the last solver
         step with gradients in train mode, then the identity loss."""
         m, cfg, solver = self.models, self.cfg, self.face_solver
-        fpx = batch["face_pixel_values"]
-        with torch.no_grad():
-            lat = m.vae.encode_sample(fpx, fd["vae_noise"]) * m.scaling_factor
-        latents = solver.add_noise(lat, fd["noise"].to(lat.dtype), 0) * solver.init_noise_sigma
-        concept, id_ctx = encode_condition(m, batch["face_pixel_values_clip"], token_index=0)
-        text_ctx = self._text(batch["face_text_input_ids"], concept, batch["face_concept_placeholder_idx"])
-        uncond_text = uncond_id = None
-        if cfg.face_loss_guidance != 1.0:
-            _, uncond_id = encode_condition(m, torch.zeros_like(batch["face_pixel_values_clip"]), 0)
-            uncond_text = self._text(batch["face_uncond_input_ids"])
-        latents = denoise(m, solver, latents, text_ctx, id_ctx, uncond_text, uncond_id,
-                          cfg.face_loss_guidance, num_grad_steps=1, train=True,
-                          step_draws=[{"fusion_u": fd["fusion_u"], "dropout": fd["dropout"]}])
-        gen = m.vae.decode(latents / m.scaling_factor).clamp(-1.0, 1.0)
-        return self.face_loss_fn(fpx, gen)
+        with trace.span("face_loss"):
+            fpx = batch["face_pixel_values"]
+            with torch.no_grad():
+                lat = m.vae.encode_sample(fpx, fd["vae_noise"]) * m.scaling_factor
+            latents = solver.add_noise(lat, fd["noise"].to(lat.dtype), 0) * solver.init_noise_sigma
+            concept, id_ctx = encode_condition(m, batch["face_pixel_values_clip"], token_index=0)
+            text_ctx = self._text(batch["face_text_input_ids"], concept, batch["face_concept_placeholder_idx"])
+            uncond_text = uncond_id = None
+            if cfg.face_loss_guidance != 1.0:
+                _, uncond_id = encode_condition(m, torch.zeros_like(batch["face_pixel_values_clip"]), 0)
+                uncond_text = self._text(batch["face_uncond_input_ids"])
+            latents = denoise(m, solver, latents, text_ctx, id_ctx, uncond_text, uncond_id,
+                              cfg.face_loss_guidance, num_grad_steps=1, train=True,
+                              step_draws=[{"fusion_u": fd["fusion_u"], "dropout": fd["dropout"]}])
+            with trace.span("decode"):
+                gen = m.vae.decode(latents / m.scaling_factor).clamp(-1.0, 1.0)
+            with trace.span("face_embed"):
+                return self.face_loss_fn(fpx, gen)
 
     def compute_grads(self, batch: Dict, draws: Dict) -> Tuple[Dict, Dict[str, torch.Tensor]]:
         """(metrics, {trainable name: gradient of the optimized loss})."""
         total, metrics = self.loss_fn(batch, draws)
         names = list(self.trainable)
-        grads = torch.autograd.grad(total, [self.trainable[k] for k in names], allow_unused=True)
+        with trace.span("backward"):
+            grads = torch.autograd.grad(total, [self.trainable[k] for k in names], allow_unused=True)
         return metrics, {k: torch.zeros_like(self.trainable[k]) if g is None else g
                          for k, g in zip(names, grads)}
 
     def __call__(self, batch: Dict, draws: Dict) -> Dict:
-        metrics, grads = self.compute_grads(batch, draws)
-        self.optimizer.step(grads)
+        with trace.span("micro_step", kind="diffusion" if self.face_loss_fn is None else "face"):
+            metrics, grads = self.compute_grads(batch, draws)
+            with trace.span("optimizer"):
+                self.optimizer.step(grads)
         return metrics
 
 

@@ -8,14 +8,13 @@ ignores; it is rebuilt when any source is newer. A missing nvcc or a
 failed compile raises `KernelBuildError`: there is no fallback.
 
 Every C entry point returns `cudaGetLastError()` after its launch;
-`check()` turns a non-zero code into an exception. `launch_counts` counts
-the launches of each kernel, so a run can show which kernels it went
-through.
+`check()` turns a non-zero code into an exception. The wrappers count
+each launch in `utils.trace` as `launch.<kernel>`, so a run can show
+which kernels it went through.
 """
 
 from __future__ import annotations
 
-import collections
 import ctypes
 import glob
 import os
@@ -29,8 +28,6 @@ __all__ = [
     "build_library",
     "load_library",
     "check",
-    "launch_counts",
-    "reset_launch_counts",
     "BUILD_DIR",
     "CSRC_DIR",
 ]
@@ -73,13 +70,6 @@ class KernelBuildError(RuntimeError):
 
 class KernelLaunchError(RuntimeError):
     pass
-
-
-launch_counts: collections.Counter = collections.Counter()
-
-
-def reset_launch_counts() -> None:
-    launch_counts.clear()
 
 
 def _find_nvcc() -> str | None:

@@ -26,6 +26,7 @@ from __future__ import annotations
 import torch
 
 from photoverse_tpu_torch.ops import _build
+from photoverse_tpu_torch.utils import trace
 
 __all__ = [
     "flash_sdpa",
@@ -194,7 +195,7 @@ def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tenso
     if q.device.type == "cpu":
         return flash_sdpa_plain(q, k, v)
     out = _launch(q, k, v, with_lse=False)
-    _build.launch_counts["flash_sdpa"] += 1
+    trace.count("launch.flash_sdpa")
     return out
 
 
@@ -206,7 +207,7 @@ def flash_sdpa_stream(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torc
     if q.device.type == "cpu":
         return flash_sdpa_plain(q, k, v)
     out = _launch(q, k, v, with_lse=False)
-    _build.launch_counts["flash_sdpa_stream"] += 1
+    trace.count("launch.flash_sdpa_stream")
     return out
 
 
@@ -218,7 +219,7 @@ def flash_fwd_lse(q, k, v):
     if q.device.type == "cpu":
         return flash_fwd_lse_plain(q, k, v)
     out = _launch(q, k, v, with_lse=True)
-    _build.launch_counts["flash_stream_fwd_lse" if q.shape[-1] == 512 else "flash_sdpa_fwd_lse"] += 1
+    trace.count("launch.flash_stream_fwd_lse" if q.shape[-1] == 512 else "launch.flash_sdpa_fwd_lse")
     return out
 
 
@@ -247,7 +248,7 @@ def flash_bwd(q, k, v, out, lse, g):
         _build.stream_ptr(q.device),
     )
     _build.check(code, "pv_flash_bwd")
-    _build.launch_counts["flash_bwd"] += 1
+    trace.count("launch.flash_bwd")
     return dq, dk, dv
 
 

@@ -22,6 +22,7 @@ from __future__ import annotations
 import torch
 
 from photoverse_tpu_torch.ops import _build
+from photoverse_tpu_torch.utils import trace
 
 __all__ = [
     "fused_cross_ff",
@@ -187,5 +188,5 @@ def fused_cross_ff(h: torch.Tensor, bundle: dict, num_heads: int) -> torch.Tenso
         B, S, C, H, St, K, F, _build.stream_ptr(h.device),
     )
     _build.check(code, "pv_fused_cross_ff")
-    _build.launch_counts["fused_cross_ff"] += 1
+    trace.count("launch.fused_cross_ff")
     return out

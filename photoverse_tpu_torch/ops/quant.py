@@ -27,7 +27,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
-from photoverse_tpu_torch.ops import _build
+from photoverse_tpu_torch.utils import trace
 
 __all__ = ["quantize_weight", "quantize_activation", "int8_product", "int8_matmul", "Int8Linear"]
 
@@ -70,7 +70,7 @@ def int8_product(x_q: torch.Tensor, w_q: torch.Tensor) -> torch.Tensor:
     if M < _INT_MM_MIN_ROWS:
         a = F.pad(a, (0, 0, 0, _INT_MM_MIN_ROWS - M))
     acc = torch._int_mm(a, w_q.contiguous().t())
-    _build.launch_counts["int8_matmul"] += 1
+    trace.count("launch.int8_matmul")
     return acc[:M]
 
 

@@ -68,6 +68,7 @@ def main():
     from photoverse_tpu_torch.models.unet import UNetConfig
     from photoverse_tpu_torch.models.vae import VAEConfig
     from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils import trace
 
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                        capture_output=True, text=True).stdout.strip())
@@ -150,18 +151,18 @@ def main():
     t0 = time.perf_counter()
     m16, s16 = build(torch.bfloat16)
     runs = {}
-    _build.reset_launch_counts()
-    runs["kernels"] = run(m16, s16, contextlib.nullcontext)
-    log(f"kernels run: launches {dict(_build.launch_counts)}")
-    _build.reset_launch_counts()
-    runs["plain bf16"] = run(m16, s16, cs.plain_kernels)
-    log(f"plain bf16 run: launches {dict(_build.launch_counts) or 0}")
+    with trace.counting("launch.") as launches:
+        runs["kernels"] = run(m16, s16, contextlib.nullcontext)
+    log(f"kernels run: launches {launches}")
+    with trace.counting("launch.") as launches:
+        runs["plain bf16"] = run(m16, s16, cs.plain_kernels)
+    log(f"plain bf16 run: launches {launches or 0}")
     m32, s32 = build(torch.float32, like=m16)
     del m16, s16
     torch.cuda.empty_cache()
-    _build.reset_launch_counts()
-    runs["plain f32"] = run(m32, s32, cs.plain_kernels)
-    log(f"plain f32 run: launches {dict(_build.launch_counts) or 0}; three runs in {time.perf_counter() - t0:.1f}s, "
+    with trace.counting("launch.") as launches:
+        runs["plain f32"] = run(m32, s32, cs.plain_kernels)
+    log(f"plain f32 run: launches {launches or 0}; three runs in {time.perf_counter() - t0:.1f}s, "
         f"peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
     k, p, f = runs["kernels"], runs["plain bf16"], runs["plain f32"]

@@ -9,7 +9,8 @@ pipeline configuration, whose request and noise helpers it reuses). It
 imports `photoverse_tpu_torch` and `chip_smoke` from the current
 directory, so the same script times two checkouts in one call on one card
 (run it from each tree's root, in turns). `--profile` adds a 10-step run
-under torch.profiler: device-busy time, wall time and the largest kernels.
+under torch.profiler: device-busy time (the union of the device's
+activity intervals), wall time and the largest kernels.
 `--diff` reads the pixel difference to the run on the kernels' plain
 versions, at guidance 1 (50 steps) and 6 (10 steps).
 """
@@ -48,6 +49,7 @@ def main():
     from photoverse_tpu_torch.engine.inference import run_inference
     from photoverse_tpu_torch.models.assembly import build_models, init_params
     from photoverse_tpu_torch.ops import _build
+    from photoverse_tpu_torch.utils import trace
 
     log(f"tree {os.getcwd()}")
     log(subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
@@ -82,18 +84,32 @@ def main():
         f"{(min(secs) - min(run(10)[1] for _ in range(2))) / 40 * 1e3:.2f}")
 
     if args.profile:
+        import json
+        import tempfile
+
         from torch.profiler import ProfilerActivity, profile
 
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             _, wall = run(10)
-        # device-side events only: an operator's row repeats its kernels' time
-        evs = [e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
-        attr = "self_device_time_total" if hasattr(evs[0], "self_device_time_total") else "self_cuda_time_total"
-        busy = sum(getattr(e, attr) for e in evs) / 1e3
+        fd, path = tempfile.mkstemp(suffix=".json")
+        os.close(fd)
+        try:
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f).get("traceEvents", [])
+        finally:
+            os.remove(path)
+        # busy: the union of the device's kernels, copies and memsets
+        busy = trace.union_length(trace.device_intervals(events)) * 1e3
         log(f"profile, 10 steps: wall {wall * 1e3:.1f} ms, device busy {busy:.1f} ms "
             f"({100 * busy / (wall * 1e3):.1f}% of wall)")
-        for e in sorted(evs, key=lambda e: -getattr(e, attr))[:12]:
-            log(f"  {getattr(e, attr) / 1e3:9.2f} ms {e.count:6d} x {e.key[:90]}")
+        by = {}
+        for e in events:
+            if e.get("ph") == "X" and e.get("cat") == "kernel":
+                ms, n = by.get(e["name"], (0.0, 0))
+                by[e["name"]] = (ms + e.get("dur", 0) / 1e3, n + 1)
+        for name, (ms, n) in sorted(by.items(), key=lambda kv: -kv[1][0])[:12]:
+            log(f"  {ms:9.2f} ms {n:6d} x {name[:90]}")
 
     if args.diff:
         with cs.plain_kernels():

@@ -8,6 +8,8 @@ writer's error reporting.
 """
 
 import copy
+import ctypes
+import ctypes.util
 import json
 import os
 import shutil
@@ -41,6 +43,19 @@ def _drop_checkpoints(tmp_path):
     are full width): each test's files go when it ends."""
     yield
     shutil.rmtree(tmp_path, ignore_errors=True)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def _default_fp_env():
+    """The JAX package's native loader is linked with -ffast-math (gcc adds
+    crtfastmath.o) and so turns on flush-to-zero in the process that loads
+    it (ROADMAP.md, Queue 3); a test file that loads it may run earlier in
+    the same worker. Hypothesis refuses to run under flush-to-zero, so this
+    file starts from glibc's default floating-point environment."""
+    libm = ctypes.CDLL(ctypes.util.find_library("m"))
+    libm.fesetenv.argtypes = [ctypes.c_void_p]
+    assert libm.fesetenv(ctypes.c_void_p(-1)) == 0  # glibc's FE_DFL_ENV is (const fenv_t *) -1
+    yield
 
 
 @pytest.fixture(scope="module")

@@ -22,6 +22,7 @@ import torch
 from photoverse_tpu_torch.ops import _build
 from photoverse_tpu_torch.ops import flash_sdpa as fs
 from photoverse_tpu_torch.ops import fused_block as fb
+from photoverse_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
 
@@ -52,10 +53,10 @@ def _flash_close(got, want):
 def test_flash_kernel_matches_plain(gen, B, Sq, Skv, H, d):
     q = _r(gen, B, Sq, H, d, scale=0.3)
     k, v = _r(gen, B, Skv, H, d, scale=0.3), _r(gen, B, Skv, H, d, scale=0.3)
-    before = _build.launch_counts["flash_sdpa"]
-    got = fs.flash_sdpa(q, k, v)
+    with trace.counting("launch.") as launches:
+        got = fs.flash_sdpa(q, k, v)
     torch.cuda.synchronize()
-    assert _build.launch_counts["flash_sdpa"] == before + 1
+    assert launches.get("flash_sdpa") == 1
     want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
     assert _flash_close(got, want)
 
@@ -117,9 +118,9 @@ def test_flash_stream_kernel_ragged_lengths(gen, B, Sq, Skv, H):
     q = _r(gen, B, Sq, H, 512, scale=0.3)
     k, v = _r(gen, B, Skv, H, 512, scale=0.3), _r(gen, B, Skv, H, 512, scale=0.3)
     want, want_lse = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())
-    before = _build.launch_counts["flash_sdpa_stream"]
-    got = fs.flash_sdpa_stream(q, k, v)
-    assert _build.launch_counts["flash_sdpa_stream"] == before + 1
+    with trace.counting("launch.") as launches:
+        got = fs.flash_sdpa_stream(q, k, v)
+    assert launches.get("flash_sdpa_stream") == 1
     assert _flash_close(got, want)
     assert torch.equal(fs.flash_sdpa_stream(q, k, v), got)  # repeat calls bit-identical
     out, lse = fs.flash_fwd_lse(q, k, v)
@@ -173,10 +174,10 @@ def test_fused_kernel_matches_plain(gen, B, S, K, St):
     # kernel's limits 8 and 80), a short text context
     h, bundle, H = _fused_case(gen, B, S, St, K)
     assert all(bundle[k].dtype == torch.float32 for k in ("ln2g", "bo", "bpa"))
-    before = _build.launch_counts["fused_cross_ff"]
-    got = fb.fused_cross_ff(h, bundle, H)
+    with trace.counting("launch.") as launches:
+        got = fb.fused_cross_ff(h, bundle, H)
     torch.cuda.synchronize()
-    assert _build.launch_counts["fused_cross_ff"] == before + 1
+    assert launches.get("fused_cross_ff") == 1
     want = fb.reference_cross_ff(h.float(), bundle, H)
     assert (got.float() - want).abs().max().item() <= 1 / 32
     assert torch.equal(fb.fused_cross_ff(h, bundle, H), got)  # repeat calls bit-identical
@@ -209,23 +210,22 @@ def test_fused_blocks_at_a_width_the_kernel_lacks_keep_the_unfused_tail(gen):
     kv = inference.precompute_ctx_kv(models, text, ident)
     bundles = inference.precompute_fused_bundles(models, kv)
     assert all(b is None for b in bundles)
-    before = _build.launch_counts["fused_cross_ff"]
-    with torch.no_grad():
+    with torch.no_grad(), trace.counting("launch.") as launches:
         out = net(_r(gen, 2, 8, 8, 4), torch.tensor([10, 10], device="cuda"), text, ident,
                   ctx_kv=kv, fused_bundles=bundles)
     out = out[0] if isinstance(out, tuple) else out
     assert torch.isfinite(out.float()).all()
-    assert _build.launch_counts["fused_cross_ff"] == before
+    assert "fused_cross_ff" not in launches
 
 
 @pytest.mark.parametrize("B,S,H,d", [(1, 100, 2, 40), (2, 256, 2, 80), (1, 200, 1, 512)])
 def test_flash_fwd_lse_kernel_matches_plain(gen, B, S, H, d):
     q, k, v = (_r(gen, B, S, H, d, scale=0.3) for _ in range(3))
     counter = "flash_stream_fwd_lse" if d == 512 else "flash_sdpa_fwd_lse"
-    before = _build.launch_counts[counter]
-    out, lse = fs.flash_fwd_lse(q, k, v)
+    with trace.counting("launch.") as launches:
+        out, lse = fs.flash_fwd_lse(q, k, v)
     torch.cuda.synchronize()
-    assert _build.launch_counts[counter] == before + 1
+    assert launches.get(counter) == 1
     want_out, want_lse = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())
     assert lse.shape == (B, H, S) and lse.dtype == torch.float32
     assert _flash_close(out, want_out) and _flash_close(lse, want_lse)
@@ -240,10 +240,10 @@ def _bwd_inputs(gen, B, S, H, d):
 @pytest.mark.parametrize("B,S,H,d", [(1, 100, 2, 40), (2, 256, 3, 80), (1, 64, 1, 40)])
 def test_flash_bwd_kernel_matches_plain(gen, B, S, H, d):
     args = _bwd_inputs(gen, B, S, H, d)
-    before = _build.launch_counts["flash_bwd"]
-    got = fs.flash_bwd(*args)
+    with trace.counting("launch.") as launches:
+        got = fs.flash_bwd(*args)
     torch.cuda.synchronize()
-    assert _build.launch_counts["flash_bwd"] == before + 1
+    assert launches.get("flash_bwd") == 1
     want = fs.flash_bwd_plain(*(a.float() for a in args))
     for g, w in zip(got, want):
         assert g.dtype == torch.bfloat16 and g.shape == (B, S, H, d)
@@ -412,12 +412,11 @@ def test_masked_unet_evaluation_kernels_against_plain(gen):
     kv = inference.precompute_ctx_kv(models, text, ident)
     bundles = inference.precompute_fused_bundles(models, kv)
     assert sum(b is not None for b in bundles) == 3  # the C=320 blocks are served, the C=640 mid block not
-    _build.reset_launch_counts()
     with torch.no_grad():
-        got, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles, ip_mask=mask)
-        counts = dict(_build.launch_counts)
-        free, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles)
-        free_counts = dict(_build.launch_counts)
+        with trace.counting("launch.") as free_counts:
+            with trace.counting("launch.") as counts:
+                got, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles, ip_mask=mask)
+            free, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles)
         with _plain_kernels():
             want, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles, ip_mask=mask)
     assert counts == {"flash_sdpa": 4}  # S=1024 down and twice up, S=256 mid
@@ -438,9 +437,8 @@ def test_euler_a_run_kernels_against_plain(gen):
     solver = make_solver(models.schedule, "euler_a", 3)
     example = _narrow_example(2)
     kw = dict(guidance_scale=2.0, latent_size=32)
-    _build.reset_launch_counts()
-    got = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(4), **kw)
-    counts = dict(_build.launch_counts)
+    with trace.counting("launch.") as counts:
+        got = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(4), **kw)
     with _plain_kernels():
         want = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(4), **kw)
     other = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(5), **kw)
@@ -472,7 +470,6 @@ def test_service_worker_thread_launches_kernels_and_reuses_the_build(gen, tmp_pa
     built = os.path.getmtime(so)
     svc = PhotoVerseService(args, models=(tok, models))
     key = (3, 2.0, "euler_a")
-    _build.reset_launch_counts()
     import threading
 
     out = {}
@@ -481,12 +478,13 @@ def test_service_worker_thread_launches_kernels_and_reuses_the_build(gen, tmp_pa
         out[seed] = svc.submit(_narrow_example(1, seed), 1, seed, key)
 
     threads = [threading.Thread(target=fire, args=(s,)) for s in (3, 7)]
-    for t in threads:
-        t.start()
-    for t in threads:
-        t.join()
+    with trace.counting("launch.") as launches:
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
     assert out[3]["batch_rows"] == out[7]["batch_rows"] == 2
-    assert dict(_build.launch_counts) == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1}
+    assert launches == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1}
     assert out[3]["images"].shape == (1, 64, 64, 3) and out[3]["images"].dtype == np.uint8
     assert not svc.thread_errors and svc.drain(30)
 
@@ -511,10 +509,10 @@ def test_int8_product_on_the_card_equals_the_plain_product(gen, M, K, N):
 
     x_q = torch.randint(-127, 128, (M, K), generator=gen, device="cuda").to(torch.int8)
     w_q = torch.randint(-127, 128, (N, K), generator=gen, device="cuda").to(torch.int8)
-    before = _build.launch_counts["int8_matmul"]
-    got = quant.int8_product(x_q, w_q)
+    with trace.counting("launch.") as launches:
+        got = quant.int8_product(x_q, w_q)
     torch.cuda.synchronize()
-    assert _build.launch_counts["int8_matmul"] == before + 1
+    assert launches.get("int8_matmul") == 1
     assert got.dtype == torch.int32 and got.shape == (M, N)
     assert torch.equal(got.cpu(), quant.int8_product(x_q.cpu(), w_q.cpu()))
     # the whole route: the same codes and scales as the CPU's (the JAX

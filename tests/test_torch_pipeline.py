@@ -17,7 +17,7 @@ from photoverse_tpu.core.schedulers import DPMSolverMultistep as JaxSolver
 from photoverse_tpu.engine.inference import run_inference as jax_run_inference
 from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
 from photoverse_tpu_torch.engine.inference import run_inference
-from photoverse_tpu_torch.ops import _build
+from photoverse_tpu_torch.utils import trace
 from tests.tiny_models import LATENT, tiny_batch, tiny_bundle
 from tests.torch_tiny import port_models
 
@@ -75,7 +75,7 @@ def test_run_inference_fast_path_matches_jax(bundle):
         modules, unet=modules.unet.clone(config=dataclasses.replace(modules.unet.config, **fast))
     )
     port = port_models(modules, params, unet_overrides=fast)
-    _build.reset_launch_counts()
-    want, got = _both(jmodules, params, port, 2.0, interpret=True)
+    with trace.counting("launch.") as launches:
+        want, got = _both(jmodules, params, port, 2.0, interpret=True)
     assert np.abs(got - want).max() <= ATOL
-    assert sum(_build.launch_counts.values()) == 0  # CPU tensors never launch a kernel
+    assert launches == {}  # CPU tensors never launch a kernel

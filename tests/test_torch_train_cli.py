@@ -176,6 +176,10 @@ def test_boundary_checkpoint_is_promoted(boundary_run):
     assert os.path.getsize(os.path.join(out, "profile", "trace.json")) > 0
     summary = json.load(open(os.path.join(out, "profile", "summary.json")))
     assert summary["wall_s"] > 0 and summary["device_busy_s"] is None  # no device events on the CPU
+    spans = json.load(open(os.path.join(out, "profile", "spans.json")))  # the program's spans of step 2
+    names = [s["name"] for s in spans["spans"]]
+    assert spans["anchor_host"] is None and names.count("optimizer") == names.count("micro_step") >= 1
+    assert names.count("backward") == names.count("forward") == names.count("micro_step")
     for stepped, final in (("photoverse_000002.msgpack", "photoverse.msgpack"),
                            ("photoverse_000002.msgpack.lora.json", "photoverse.msgpack.lora.json"),
                            ("photoverse_000002.pt", "photoverse.pt")):
