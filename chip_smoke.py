@@ -149,6 +149,10 @@ LSE_ATOL = 2**-10
 # rounded to bf16 once; unit-scale activations give |out| < 8, where a bf16
 # ulp is <= 2^-5, so 1/32 is one ulp (the rounding itself is at most half)
 FUSED_ATOL = 1 / 32
+# GroupNorm over channels-last activations: f32 moments and affine, one
+# rounding to bf16, as its plain version; weights 1 +- 0.1 keep |out| < 8,
+# where a bf16 ulp is <= 2^-5, so 1/32 is one ulp
+GN_ATOL = 1 / 32
 # pipeline: max abs pixel difference (in [-1, 1]) between the kernel run and
 # the same run with each kernel swapped for its plain version. Guidance 1:
 # the JAX package's envelope for flash/fused on vs off on random weights
@@ -341,6 +345,7 @@ def phase_kernels(source_tpu: dict):
     from photoverse_tpu_torch.ops import bounds
     from photoverse_tpu_torch.ops import flash_sdpa as fs
     from photoverse_tpu_torch.ops import fused_block as fb
+    from photoverse_tpu_torch.ops import group_norm as gn
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -493,6 +498,39 @@ def phase_kernels(source_tpu: dict):
             fault(e > FUSED_ATOL, f"fused_cross_ff one head's text values dropped: err {e:.6g} "
                   f"(tol {FUSED_ATOL:.6g})")
 
+    # GroupNorm over channels-last activations, 32 groups: the UNet's first
+    # level at batch 16 (a ResNet block's norm2 with its time embedding and
+    # SiLU), its widest concatenation at 8^2, the VAE decoder's last level at
+    # batch 8 and 1. Library: the add, F.group_norm and F.silu on the same
+    # values in NCHW, as the unfused layers ran them
+    for N, C, HW, add, silu in ((16, 320, 64, True, True), (16, 2560, 8, True, True), (8, 128, 512, False, True),
+                                (1, 128, 512, False, True)):
+        x = (1.5 + 2 * torch.randn(N, HW, HW, C, generator=gen, device=dev)).bfloat16().permute(0, 3, 1, 2)
+        w = (1 + 0.1 * torch.randn(C, generator=gen, device=dev)).bfloat16()
+        b = (0.1 * torch.randn(C, generator=gen, device=dev)).bfloat16()
+        t = torch.randn(N, C, generator=gen, device=dev).bfloat16() if add else None
+        got = gn.group_norm_nhwc(x, w, b, 32, 1e-5, t, silu)
+        want = gn.group_norm_nhwc_plain(x, w, b, 32, 1e-5, t, silu)
+        err = (got.float() - want.float()).abs().max().item()
+        plain_ms = _time_ms(lambda: gn.group_norm_nhwc_plain(x, w, b, 32, 1e-5, t, silu), 5)
+        xn, t4 = x.contiguous(), None if t is None else t[:, :, None, None]
+
+        def library(xn=xn, t4=t4, w=w, b=b, silu=silu):
+            y = nnf.group_norm(xn if t4 is None else xn + t4, 32, w, b, 1e-5)
+            return nnf.silu(y) if silu else y
+
+        record("group_norm_nhwc", "cuda", "photoverse_tpu_torch/csrc/group_norm_nhwc.cu",
+               source_tpu["group_norm_nhwc"], err, GN_ATOL, lambda: gn.group_norm_nhwc(x, w, b, 32, 1e-5, t, silu),
+               20, plain_ms, [N, C, HW, HW], bounds.group_norm(N, HW * HW, C, add), library)
+        same = torch.equal(got, gn.group_norm_nhwc(x, w, b, 32, 1e-5, t, silu))
+        check(same and got.is_contiguous(memory_format=torch.channels_last),
+              f"group_norm_nhwc {[N, C, HW, HW]}: channels-last output, repeat bit-identical {same}")
+        if add:
+            e = (gn.group_norm_nhwc(x, w, b, 32, 1e-5, None, silu).float() - want.float()).abs().max().item()
+            fault(e > GN_ATOL, f"group_norm_nhwc {[N, C, HW, HW]} time embedding dropped: err {e:.6g} "
+                  f"(tol {GN_ATOL:.6g})")
+        del x, got, want, xn
+
     # the training kernels on unit-scale inputs: out, dq, dk and dv held at
     # FLASH_RTOL of their own max |.|, lse at LSE_ATOL
     def rel_err(got, want):
@@ -608,11 +646,13 @@ def plain_kernels():
     """Swap every kernel of the main path for its plain PyTorch version at
     the call sites (the comparison run; the wrappers themselves never fall
     back)."""
-    from photoverse_tpu_torch.models import unet, vae
+    from photoverse_tpu_torch.models import layers, unet, vae
     from photoverse_tpu_torch.ops import flash_sdpa as fs
     from photoverse_tpu_torch.ops import fused_block as fb
+    from photoverse_tpu_torch.ops import group_norm as gn
 
-    with mock.patch.object(unet, "flash_sdpa", fs.flash_sdpa_plain), \
+    with mock.patch.object(layers, "group_norm_nhwc", gn.group_norm_nhwc_plain), \
+            mock.patch.object(unet, "flash_sdpa", fs.flash_sdpa_plain), \
             mock.patch.object(unet, "flash_sdpa_diff", fs.flash_sdpa_plain), \
             mock.patch.object(unet, "fused_cross_ff", fb.reference_cross_ff), \
             mock.patch.object(vae, "flash_sdpa_stream", fs.flash_sdpa_plain), \
@@ -679,7 +719,7 @@ def phase_pipeline(models):
             ref, plain_secs = run(n_steps, guidance)
         plain_counts = trace.since(launches0, "launch.")
         evals = n_steps
-        want = {"flash_sdpa": 10 * evals, "fused_cross_ff": 5 * evals, "flash_sdpa_stream": 1}
+        want = _serving_counts(evals)
         diff = (imgs - ref).abs().max().item()
         finite = bool(torch.isfinite(imgs).all())
         in_range = bool(imgs.min() >= -1 and imgs.max() <= 1)
@@ -700,11 +740,19 @@ def phase_pipeline(models):
     return results, ok
 
 
+# GroupNorms of the SD-1.5 UNet, VAE decoder and VAE encoder (two per
+# ResNet block, one per attention block, the output norm): the calls of
+# group_norm_nhwc in their no-grad forwards
+UNET_NORMS, DECODER_NORMS, ENCODER_NORMS = 61, 30, 22
+
+
 def _serving_counts(evals: int, fused: bool = True, stream: int = 1) -> dict:
     """Launches of one generation at SD-1.5 width, 512px: per UNet
-    evaluation 10 flash self-attention layers (the 64^2 and 32^2 levels) and
-    5 fused block tails (C=320), and the VAE's mid-block attention."""
-    want = {"flash_sdpa": 10 * evals, "flash_sdpa_stream": stream}
+    evaluation 10 flash self-attention layers (the 64^2 and 32^2 levels),
+    5 fused block tails (C=320) and its GroupNorms, and the VAE's mid-block
+    attention and GroupNorms (`stream` 2: an encode too)."""
+    want = {"flash_sdpa": 10 * evals, "flash_sdpa_stream": stream,
+            "group_norm_nhwc": UNET_NORMS * evals + DECODER_NORMS + ENCODER_NORMS * (stream - 1)}
     if fused:
         want["fused_cross_ff"] = 5 * evals
     return want
@@ -1078,12 +1126,16 @@ def _train_counts(n_flash: int, face_steps: int, face: bool, remat: bool) -> dic
     second VAE encode, the inner generation's no-grad steps (kernel 1), one
     more UNet evaluation under grad and the decode under grad (kernel 5).
     Remat recomputes every block that holds a flash layer in the backward,
-    so each lse forward runs twice; the backward kernels do not."""
+    so each lse forward runs twice; the backward kernels do not. The
+    channels-last GroupNorm runs in the no-grad encodes and the no-grad
+    steps only."""
     r = 2 if remat else 1
     if not face:
-        return {"flash_sdpa_stream": 1, "flash_sdpa_fwd_lse": r * n_flash, "flash_bwd": n_flash - 1}
+        return {"flash_sdpa_stream": 1, "flash_sdpa_fwd_lse": r * n_flash, "flash_bwd": n_flash - 1,
+                "group_norm_nhwc": ENCODER_NORMS}
     return {"flash_sdpa_stream": 2, "flash_sdpa": n_flash * (face_steps - 1), "flash_sdpa_fwd_lse": 2 * r * n_flash,
-            "flash_bwd": 2 * (n_flash - 1), "flash_stream_fwd_lse": r}
+            "flash_bwd": 2 * (n_flash - 1), "flash_stream_fwd_lse": r,
+            "group_norm_nhwc": 2 * ENCODER_NORMS + UNET_NORMS * (face_steps - 1)}
 
 
 def phase_train():
@@ -2356,7 +2408,8 @@ def phase_parallel(smi: str, root: str, data: str):
         for m in PARALLEL_MODES:
             got = [_u8(os.path.join(tmp, m, f"generated_image{i}.png")) for i in range(2)]
             diff = _u8_diff(got, one)
-            want = _serving_counts(10) if m == "data" else {"flash_sdpa": 100}
+            want = {"data": _serving_counts(10), "spatial": {"flash_sdpa": 100},  # split norms: no kernel
+                    "tensor": {"flash_sdpa": 100, "group_norm_nhwc": UNET_NORMS * 10 + DECODER_NORMS}}[m]
             counts = [rk[m]["counts"] for rk in ranks]
             secs = [rk[m]["seconds"] for rk in ranks]
             check(within(diff) and all(c == want for c in counts),
@@ -2809,7 +2862,8 @@ def phase_soak(smi: str, root: str, masked: str):
     return ok
 
 
-# file:line of each TPU kernel's pallas_call in the JAX package
+# what each kernel replaces: the file:line of its TPU kernel's pallas_call
+# in the JAX package, or none
 TPU_KERNELS = {
     "flash_sdpa": "photoverse_tpu/ops/flash_sdpa.py:154",
     "flash_sdpa_stream": "photoverse_tpu/ops/flash_sdpa.py:462",
@@ -2817,8 +2871,9 @@ TPU_KERNELS = {
     "flash_sdpa_fwd_lse": "photoverse_tpu/ops/flash_sdpa.py:206",
     "flash_bwd": "photoverse_tpu/ops/flash_sdpa.py:345",
     "flash_stream_fwd_lse": "photoverse_tpu/ops/flash_sdpa.py:500",
+    "group_norm_nhwc": "none (the JAX package leaves GroupNorm to XLA)",
 }
-SERVING_KERNELS = ("flash_sdpa", "flash_sdpa_stream", "fused_cross_ff")
+SERVING_KERNELS = ("flash_sdpa", "flash_sdpa_stream", "fused_cross_ff", "group_norm_nhwc")
 
 
 def main() -> int:

@@ -87,7 +87,8 @@ def build_models(
     a config passed in is used as it is, as in the JAX package (LoRA comes
     in through `unet_config`). `int8_conditioning` sets `int8_dense` on both
     CLIP configs: W8A8 int8 layers in the frozen encoders (ops/quant.py),
-    inference-only."""
+    inference-only. The UNet's and the VAE's convolution weights are
+    channels_last, the layout their activations keep."""
     unet_cfg = unet_config or UNetConfig(
         use_flash_attention=use_flash_attention,
         fast_attention_scores=fast_attention_scores,
@@ -110,7 +111,10 @@ def build_models(
             adapter(), adapter(),
             make_sd15_schedule(), image_encoder_layers_idx,
         )
-    return models.to(dtype=dtype).eval().requires_grad_(False)
+    models = models.to(dtype=dtype).eval().requires_grad_(False)
+    for m in (models.unet, models.vae):
+        m.to(memory_format=torch.channels_last)
+    return models
 
 
 def _fill(name: str, module: nn.Module, shape, rng: np.random.Generator) -> np.ndarray:

@@ -8,6 +8,15 @@ Under spatial parallelism (parallel/sp.py) a `Spatial` split set on
 their halo rows from the neighbouring ranks and the norms sum their
 moments over the model group; unset (None), both are the plain layers.
 
+Without grad, a GroupNorm whose input is a CUDA tensor in channels_last
+memory runs ops.group_norm.group_norm_nhwc (one kernel that reads the
+layout as it lies, with the ResNet block's time-embedding add and the SiLU
+after the norm fused in; `nhwc_route`), so the UNet's and the VAE's
+no-grad forwards keep their activations channels-last from the first
+convolution to the last. Every other input (NCHW, the CPU, grad enabled,
+the spatial split) keeps torch's GroupNorm, the add and the SiLU as
+separate operations.
+
 Trainable weights may stay f32 masters inside a bf16 model: `Linear`
 casts its weight to the activation's dtype in `forward`, as flax's
 `dtype=` does, so the same module serves both.
@@ -27,11 +36,12 @@ import torch
 from torch import nn
 import torch.nn.functional as F
 
+from photoverse_tpu_torch.ops.group_norm import group_norm_nhwc
 from photoverse_tpu_torch.parallel.mesh import copy_to_model
 
 __all__ = [
     "Conv2d", "GroupNorm", "LayerNorm", "Linear", "LoraLinear", "ResnetBlock", "Group", "Sampler",
-    "proj", "dropout", "remat", "replaying", "RowGenerator",
+    "proj", "dropout", "remat", "replaying", "RowGenerator", "nhwc_route",
 ]
 
 
@@ -52,12 +62,24 @@ class Conv2d(nn.Conv2d):
         return self.spatial.conv2d(x, w, b, self.stride[0], self.padding[0])
 
 
+def nhwc_route(x: torch.Tensor) -> bool:
+    """Whether a norm's input takes the channels-last kernel: a CUDA tensor
+    in channels_last memory while grad is disabled (the kernel has no
+    backward)."""
+    return x.is_cuda and not torch.is_grad_enabled() and x.is_contiguous(memory_format=torch.channels_last)
+
+
 class GroupNorm(nn.GroupNorm):
     """GroupNorm whose arithmetic runs in f32 when `f32` is set (the
     reference's default), or in the input dtype (its `fast_norms`; PyTorch's
     kernel still computes a bf16 input in f32 and rounds once). With
     `spatial` set, the moments span every rank's rows (Spatial.group_norm:
-    the same f32 arithmetic, returned in the input dtype)."""
+    the same f32 arithmetic, returned in the input dtype).
+
+    forward(x, add=None, silu=False) is silu?(norm(x + add[:, :, None,
+    None])); an input `nhwc_route` accepts runs all three as one kernel
+    (ops.group_norm, the same f32 arithmetic for both `f32` settings, the
+    SiLU before the one rounding)."""
 
     spatial = None  # parallel.sp.Spatial
 
@@ -65,14 +87,20 @@ class GroupNorm(nn.GroupNorm):
         super().__init__(groups, channels, eps=eps)
         self.f32 = f32
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, add: Optional[torch.Tensor] = None, silu: bool = False) -> torch.Tensor:
+        if self.spatial is None and nhwc_route(x):
+            return group_norm_nhwc(x, self.weight, self.bias, self.num_groups, self.eps, add, silu)
+        if add is not None:
+            x = x + add[:, :, None, None]
         if self.spatial is not None:
-            return self.spatial.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
-        if self.f32:
-            return F.group_norm(
+            y = self.spatial.group_norm(x, self.num_groups, self.weight, self.bias, self.eps)
+        elif self.f32:
+            y = F.group_norm(
                 x.float(), self.num_groups, self.weight.float(), self.bias.float(), self.eps
             ).to(x.dtype)
-        return super().forward(x)
+        else:
+            y = super().forward(x)
+        return F.silu(y) if silu else y
 
 
 class LayerNorm(nn.LayerNorm):
@@ -246,10 +274,9 @@ class ResnetBlock(nn.Module):
         self.conv_shortcut = nn.Conv2d(in_ch, out_ch, 1) if in_ch != out_ch else None
 
     def forward(self, x: torch.Tensor, temb: Optional[torch.Tensor] = None) -> torch.Tensor:
-        h = self.conv1(F.silu(self.norm1(x)))
-        if self.time_emb_proj is not None:
-            h = h + self.time_emb_proj(F.silu(temb))[:, :, None, None]
-        h = self.conv2(F.silu(self.norm2(h)))
+        h = self.conv1(self.norm1(x, silu=True))
+        t = self.time_emb_proj(F.silu(temb)) if self.time_emb_proj is not None else None
+        h = self.conv2(self.norm2(h, add=t, silu=True))
         sc = self.conv_shortcut(x) if self.conv_shortcut is not None else x
         return sc + h
 

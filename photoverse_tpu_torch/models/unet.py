@@ -4,7 +4,13 @@ and train modes. Port of photoverse_tpu/models/unet.py.
 Module names follow the diffusers UNet2DConditionModel state dict with the
 PhotoVerse processor's `attn2.processor.to_{k,v}_ip.0`, which
 `convert_unet` reads. The public forward keeps the JAX package's NHWC
-layout; convolutions run NCHW inside.
+layout. Inside, the activations are NCHW tensors in channels_last memory:
+the input's permute is a channels_last view, and with the convolutions'
+weights channels_last too (models/assembly.py:build_models) every
+convolution, residual add, skip concatenation and nearest upsampling keeps
+that layout. Without grad the GroupNorms read it as it lies
+(layers.GroupNorm), so nothing converts back between the first convolution
+and the last; Transformer2D's permutes to and from (B, S, C) are views.
 
 Kernel routes (the build flags of the serving configuration):
   - use_flash_attention: self-attention at S >= flash_min_seq goes through
@@ -505,6 +511,6 @@ class UNet2DCondition(nn.Module):
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
-        eps = self.conv_out(F.silu(self.conv_norm_out(x)))
+        eps = self.conv_out(self.conv_norm_out(x, silu=True))
         v_ip_norms = torch.stack(norms, dim=1).reshape(B, -1)
         return eps.float().permute(0, 2, 3, 1), v_ip_norms

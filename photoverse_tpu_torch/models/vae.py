@@ -4,7 +4,9 @@ of photoverse_tpu/models/vae.py.
 
 Module names follow the diffusers AutoencoderKL state dict (`encoder.*`,
 `quant_conv`, `decoder.*`, `post_quant_conv`), which `convert_vae` reads.
-Public tensors are NHWC; every GroupNorm uses eps 1e-6. With
+Public tensors are NHWC; inside, NCHW in channels_last memory, as in the
+UNet (models/unet.py), so the no-grad decoder and encoder take the
+channels-last GroupNorm kernel. Every GroupNorm uses eps 1e-6. With
 use_flash_attention the mid blocks' single-head attention at S >= 1024
 (S=4096, d=512 at 512px) takes the streaming flash kernel: the no-grad
 forward under torch.no_grad(), the differentiable one (lse forward,
@@ -139,7 +141,7 @@ class Encoder(nn.Module):
             if hasattr(blk, "downsamplers"):
                 # asymmetric (0, 1) pad, then the stride-2 conv, as the SD VAE
                 x = blk.downsamplers[0].conv(F.pad(x, (0, 1, 0, 1)))
-        x = F.silu(self.conv_norm_out(_run_mid(self.mid_block, x)))
+        x = self.conv_norm_out(_run_mid(self.mid_block, x), silu=True)
         return _conv_out_f32(self.conv_out, x)
 
 
@@ -183,7 +185,7 @@ class Decoder(nn.Module):
             if hasattr(blk, "upsamplers"):
                 up = blk.upsamplers[0].conv
                 x = run(lambda h, up=up: up(F.interpolate(h, scale_factor=2.0, mode="nearest")), x)
-        return _conv_out_f32(self.conv_out, F.silu(self.conv_norm_out(x)))
+        return _conv_out_f32(self.conv_out, self.conv_norm_out(x, silu=True))
 
 
 def _conv1x1_f32(conv: Conv2d, x: torch.Tensor) -> torch.Tensor:

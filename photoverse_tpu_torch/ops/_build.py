@@ -47,6 +47,7 @@ NVCC_FLAGS = (
 P = ctypes.c_void_p
 I = ctypes.c_int
 L = ctypes.c_longlong
+F = ctypes.c_float
 # C signatures of the entry points in csrc/ (all return cudaError_t as int)
 SIGNATURES = {
     # q, k, v, out, lse or null, B, Sq, Skv, H, D, strides (b, s, h) of q, k,
@@ -59,6 +60,9 @@ SIGNATURES = {
     # h, out, kT, vT, kI, vI, ln2g, ln2b, wq, wout, bout, ln3g, ln3b,
     # wpa, wpg, bpa, bpg, wo, bo, B, S, C, H, St, K, F, stream
     "pv_fused_cross_ff": [P] * 19 + [I] * 7 + [P],
+    # x, add or null, weight, bias, out, work, N, HW, C, G, chunks, eps,
+    # x_bf16, w_bf16, silu, stream
+    "pv_group_norm_nhwc": [P] * 6 + [I] * 5 + [F] + [I] * 3 + [P],
 }
 # const char* pv_error_string(int code)
 ERROR_STRING = "pv_error_string"

@@ -10,7 +10,7 @@ kernel reads again. Pure Python: no torch needed.
 from __future__ import annotations
 
 __all__ = ["PEAK_FLOPS", "PEAK_BYTES", "bound_ms", "bound_by", "flash_fwd", "flash_bwd",
-           "fused_cross_ff"]
+           "fused_cross_ff", "group_norm"]
 
 PEAK_FLOPS = 989e12  # bf16 tensor cores, dense
 PEAK_BYTES = 3.35e12
@@ -54,3 +54,11 @@ def fused_cross_ff(B: int, S: int, C: int, H: int, St: int, K: int, F: int):
     nbytes = (BF16 * (2 * B * S * C + 2 * C * C + 3 * C * F + 2 * B * C * (St + K))
               + F32 * (6 * C + 2 * F))
     return ops, nbytes
+
+
+def group_norm(N: int, HW: int, C: int, add: bool = False, itemsize: int = BF16):
+    """(operations, bytes) of group_norm_nhwc on (N, H W, C): no matrix
+    product, so no operation counts against the tensor-core peak; x in and
+    out once, the (N, C) add, the weight and the bias, all of x's type."""
+    nbytes = itemsize * (2 * N * HW * C + (N * C if add else 0) + 2 * C)
+    return 0, nbytes

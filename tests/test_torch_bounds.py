@@ -45,6 +45,12 @@ def test_bytes_count_each_input_and_output_once():
     _, fused = bounds.fused_cross_ff(B, S, C, H, St, K, F)
     weights = 2 * C * C + 3 * C * F
     assert fused == 2 * (2 * B * S * C + weights + 2 * B * C * (St + K)) + 4 * (6 * C + 2 * F)
+    # the channels-last GroupNorm: x in and out, the add, weight and bias; no
+    # operation counts against the tensor cores, so bytes bound it
+    ops, norm = bounds.group_norm(16, 64 * 64, C, add=True)
+    assert ops == 0 and norm == 2 * (2 * 16 * 64 * 64 * C + 16 * C + 2 * C)
+    assert bounds.bound_by(ops, norm) == "bytes"
+    assert bounds.group_norm(1, 64, C, itemsize=4)[1] == 4 * (2 * 64 * C + 2 * C)
 
 
 def test_bound_is_the_larger_quotient():

@@ -13,7 +13,9 @@ ulp). The lse forward and the flash backward take the same 2^-6 of the
 largest |value| per output (lse, dq, dk, dv: bf16 outputs from f32 sums,
 the backward's p and ds rounded to bf16 for its products); the autograd
 Functions are held to gradients by
-autograd through the plain f32 forward at the same limit.
+autograd through the plain f32 forward at the same limit. The channels-last
+GroupNorm and its plain version both compute in f32 and round once, so
+they may differ by one bf16 spacing (taken at 1/16 for smaller values).
 """
 
 import pytest
@@ -22,6 +24,7 @@ import torch
 from photoverse_tpu_torch.ops import _build
 from photoverse_tpu_torch.ops import flash_sdpa as fs
 from photoverse_tpu_torch.ops import fused_block as fb
+from photoverse_tpu_torch.ops import group_norm as gn
 from photoverse_tpu_torch.utils import trace
 
 pytestmark = pytest.mark.cuda
@@ -388,11 +391,20 @@ def _narrow_example(B, seed=0):
     }
 
 
+def _norms(module) -> int:
+    """GroupNorms in `module`: the group_norm_nhwc calls of its no-grad
+    forward."""
+    from photoverse_tpu_torch.models.layers import GroupNorm
+
+    return sum(isinstance(m, GroupNorm) for m in module.modules())
+
+
 @contextlib.contextmanager
 def _plain_kernels():
-    from photoverse_tpu_torch.models import unet, vae
+    from photoverse_tpu_torch.models import layers, unet, vae
 
-    with mock.patch.object(unet, "flash_sdpa", fs.flash_sdpa_plain), \
+    with mock.patch.object(layers, "group_norm_nhwc", gn.group_norm_nhwc_plain), \
+            mock.patch.object(unet, "flash_sdpa", fs.flash_sdpa_plain), \
             mock.patch.object(unet, "fused_cross_ff", fb.reference_cross_ff), \
             mock.patch.object(vae, "flash_sdpa_stream", fs.flash_sdpa_plain):
         yield
@@ -419,8 +431,9 @@ def test_masked_unet_evaluation_kernels_against_plain(gen):
             free, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles)
         with _plain_kernels():
             want, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles, ip_mask=mask)
-    assert counts == {"flash_sdpa": 4}  # S=1024 down and twice up, S=256 mid
-    assert free_counts == {"flash_sdpa": 8, "fused_cross_ff": 3}
+    n = _norms(models.unet)
+    assert counts == {"flash_sdpa": 4, "group_norm_nhwc": n}  # S=1024 down and twice up, S=256 mid
+    assert free_counts == {"flash_sdpa": 8, "fused_cross_ff": 3, "group_norm_nhwc": 2 * n}
     assert torch.isfinite(got).all()
     scale = want.abs().max().item()
     print(f"masked eval kernels vs plain {(got - want).abs().max().item():.6g} of {scale:.6g}, "
@@ -442,7 +455,8 @@ def test_euler_a_run_kernels_against_plain(gen):
     with _plain_kernels():
         want = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(4), **kw)
     other = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(5), **kw)
-    assert counts == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1}
+    norms = 3 * _norms(models.unet) + _norms(models.vae.decoder)
+    assert counts == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1, "group_norm_nhwc": norms}
     assert got.shape == (2, 64, 64, 3) and torch.isfinite(got).all()
     diff, seeds = (got - want).abs().max().item(), (got - other).abs().max().item()
     print(f"euler_a kernels vs plain {diff:.6g}, seed 4 vs seed 5 {seeds:.6g}")
@@ -484,7 +498,8 @@ def test_service_worker_thread_launches_kernels_and_reuses_the_build(gen, tmp_pa
         for t in threads:
             t.join()
     assert out[3]["batch_rows"] == out[7]["batch_rows"] == 2
-    assert launches == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1}
+    norms = 3 * _norms(models.unet) + _norms(models.vae.decoder)
+    assert launches == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1, "group_norm_nhwc": norms}
     assert out[3]["images"].shape == (1, 64, 64, 3) and out[3]["images"].dtype == np.uint8
     assert not svc.thread_errors and svc.drain(30)
 
@@ -527,3 +542,89 @@ def test_int8_product_on_the_card_equals_the_plain_product(gen, M, K, N):
                        quant.int8_matmul(x.cpu(), w.cpu(), b.cpu(), torch.float32))
     with pytest.raises(ValueError, match="multiples of 8"):
         quant.int8_product(x_q[:, :K - 4].contiguous(), w_q[:, :K - 4].contiguous())
+
+
+def _gn_steps(got, want) -> float:
+    """The largest |got - want| in units of the bf16 spacing at |want|, or
+    at 1/16 for smaller values."""
+    w = want.float()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0**-4))) - 7)
+    return ((got.float() - w).abs() / step).max().item()
+
+
+@pytest.mark.parametrize("N,C,G,HW,add,silu,dtype,wdtype", [
+    (16, 2560, 32, 8, True, True, torch.bfloat16, torch.bfloat16),  # the UNet's widest concatenation
+    (16, 320, 32, 64, True, True, torch.bfloat16, torch.bfloat16),  # its first level at batch 16: norm2
+    (16, 320, 32, 64, False, False, torch.bfloat16, torch.bfloat16),  # Transformer2D's norm
+    (1, 128, 32, 512, False, True, torch.bfloat16, torch.bfloat16),  # the VAE decoder's last level
+    (8, 128, 32, 512, False, True, torch.bfloat16, torch.bfloat16),  # ... at batch 8
+    (2, 1920, 32, 16, True, True, torch.bfloat16, torch.float32),  # f32 norm weights
+    (2, 64, 32, 9, True, True, torch.float32, torch.float32),  # an f32 model: 4-wide f32 vectors
+    (3, 36, 4, 7, True, True, torch.bfloat16, torch.bfloat16),  # C no multiple of 8: scalar loads
+])
+def test_group_norm_kernel_matches_plain(gen, N, C, G, HW, add, silu, dtype, wdtype):
+    x = (1.5 + 2 * torch.randn(N, HW, HW, C, generator=gen, device="cuda")).to(dtype).permute(0, 3, 1, 2)
+    w = (1 + 0.3 * torch.randn(C, generator=gen, device="cuda")).to(wdtype)
+    b = (0.3 * torch.randn(C, generator=gen, device="cuda")).to(wdtype)
+    t = torch.randn(N, C, generator=gen, device="cuda").to(dtype) if add else None
+    with trace.counting("launch.") as launches:
+        got = gn.group_norm_nhwc(x, w, b, G, 1e-5, t, silu)
+    torch.cuda.synchronize()
+    assert launches == {"group_norm_nhwc": 1}
+    assert got.dtype == dtype and got.shape == x.shape and got.is_contiguous(memory_format=torch.channels_last)
+    want = gn.group_norm_nhwc_plain(x, w, b, G, 1e-5, t, silu)
+    steps = _gn_steps(got, want)
+    print(f"group_norm_nhwc {[N, C, G, HW]}: {steps} bf16 spacings from plain")
+    assert steps <= (2**-6 if dtype == torch.float32 else 1)  # f32 out: summation order only
+    assert torch.equal(got, gn.group_norm_nhwc(x, w, b, G, 1e-5, t, silu))  # no atomics: the same bits
+    if add:  # the add acts
+        assert _gn_steps(gn.group_norm_nhwc(x, w, b, G, 1e-5, None, silu), want) > 4
+
+
+def test_group_norm_kernel_refuses_what_it_cannot_read(gen):
+    x = _r(gen, 2, 8, 8, 64).permute(0, 3, 1, 2)
+    w = torch.ones(64, device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="channels_last"):
+        gn.group_norm_nhwc(x.contiguous(), w, w, 32, 1e-5)
+    with pytest.raises(TypeError, match="bf16 or f32"):
+        gn.group_norm_nhwc(x.half(), w, w, 32, 1e-5)
+    with pytest.raises(ValueError, match="groups"):
+        gn.group_norm_nhwc(x, w, w, 24, 1e-5)
+    with pytest.raises(ValueError, match="add must be"):
+        gn.group_norm_nhwc(x, w, w, 32, 1e-5, add=torch.zeros(2, 64, device="cuda"))
+
+
+def test_no_grad_unet_at_batch_16_keeps_channels_last_throughout(gen):
+    # the UNet as the serving cells run it: SD-1.5 widths, bf16, the flash
+    # routes, batch 16 at 64^2; built by build_models, which leaves its
+    # convolution weights channels_last. One no-grad call after a warm-up:
+    # every GroupNorm takes the channels-last kernel, and no device kernel
+    # converts a layout or computes torch's GroupNorm moments
+    from torch.profiler import ProfilerActivity, profile
+
+    from photoverse_tpu_torch.models.assembly import build_models
+    from photoverse_tpu_torch.models.unet import UNetConfig
+
+    unet = build_models(dtype=torch.bfloat16, unet_config=UNetConfig(
+        use_flash_attention=True, fast_attention_scores=True, fast_norms=True)).unet
+    with torch.no_grad():
+        for p in unet.parameters():
+            p.normal_(0, 0.02, generator=gen)
+    B = 16
+    args = (torch.randn(B, 64, 64, 4, generator=gen, device="cuda"), torch.full((B,), 500, device="cuda"),
+            _r(gen, B, 77, 768), _r(gen, B, 5, 768))
+    with torch.no_grad():
+        unet(*args)
+        torch.cuda.synchronize()
+        with trace.counting("launch.") as launches, profile(activities=[ProfilerActivity.CUDA]) as prof:
+            eps, _ = unet(*args)
+            torch.cuda.synchronize()
+    kernels = {e.key: e for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA}
+    attr = "self_device_time_total" if hasattr(next(iter(kernels.values())), "self_device_time_total") \
+        else "self_cuda_time_total"
+    top = sorted(kernels.items(), key=lambda kv: -getattr(kv[1], attr))[:12]
+    print("UNet batch 16, device us by kernel: " + "; ".join(f"{k[:60]} {getattr(e, attr):.0f}" for k, e in top))
+    assert launches.get("group_norm_nhwc") == _norms(unet) == 61
+    assert not [k for k in kernels if "nchwToNhwc" in k or "nhwcToNchw" in k]
+    assert not [k for k in kernels if "RowwiseMoments" in k]
+    assert torch.isfinite(eps).all()

@@ -8,6 +8,8 @@ exactly. Module outputs are held to rtol 5e-4 / atol 5e-5, the tolerance of
 the JAX package's own torch-replica test (tests/test_unet.py).
 """
 
+import copy
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -18,7 +20,9 @@ from photoverse_tpu.convert import torch_to_jax as t2j
 from photoverse_tpu.engine.inference import precompute_ctx_kv as jax_ctx_kv
 from photoverse_tpu_torch.convert import from_jax
 from photoverse_tpu_torch.engine.inference import precompute_ctx_kv
+from photoverse_tpu_torch.models import layers
 from photoverse_tpu_torch.models.assembly import build_models, init_params
+from photoverse_tpu_torch.ops.group_norm import group_norm_nhwc
 from tests.tiny_models import tiny_bundle
 from tests.torch_tiny import port_models
 
@@ -260,3 +264,88 @@ def test_init_params_threads_draw_each_models_sequence_in_order(pair):
         for pname, p in sub.named_parameters():
             mod = owners[pname.rsplit(".", 1)[0]] if "." in pname else sub
             assert np.array_equal(p.detach().numpy(), _fill(pname, mod, tuple(p.shape), rng)), (name, pname)
+
+
+def _norm_route_on_cpu(monkeypatch):
+    """Let layers.GroupNorm take its channels-last route for CPU tensors too
+    (the wrapper then runs the kernel's plain version) and record, per call,
+    whether the norm's input was channels-last."""
+    calls = []
+
+    def spy(x, *args, **kwargs):
+        calls.append(x.dim() == 4 and x.is_contiguous(memory_format=torch.channels_last))
+        return group_norm_nhwc(x, *args, **kwargs)
+
+    monkeypatch.setattr(layers, "nhwc_route", lambda x: not torch.is_grad_enabled() and x.is_contiguous(
+        memory_format=torch.channels_last))
+    monkeypatch.setattr(layers, "group_norm_nhwc", spy)
+    return calls
+
+
+def _layout_case(modules, port, which, seed=0):
+    """(model with perturbed weights, call running it on seeded inputs,
+    number of GroupNorms the call runs) for the tiny UNet or VAE decoder."""
+    rng = np.random.RandomState(seed)
+    T = torch.from_numpy
+    model = copy.deepcopy(port.unet if which == "unet" else port.vae)
+    gen = torch.Generator().manual_seed(seed)
+    with torch.no_grad():  # norm scales and biases away from 1 and 0
+        for p in model.parameters():
+            p.add_(0.05 * torch.randn(p.shape, generator=gen))
+    if which == "unet":
+        cross = modules.unet.config.cross_attention_dim
+        args = (T(rng.randn(2, 16, 16, 4).astype(np.float32)), T(np.array([3, 777], np.int32)),
+                T(rng.randn(2, 12, cross).astype(np.float32)), T(rng.randn(2, 1, cross).astype(np.float32)))
+        norms = model
+        run = lambda m: m(*args)[0]  # noqa: E731
+    else:
+        lat = T(rng.randn(2, 16, 16, 4).astype(np.float32))
+        norms = model.decoder
+        run = lambda m: m.decode(lat)  # noqa: E731
+    return model, run, sum(isinstance(m, layers.GroupNorm) for m in norms.modules())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["unet", "vae_decoder"])
+def test_channels_last_no_grad_forward_matches_the_nchw_forward(pair, monkeypatch, which, dtype):
+    # the no-grad forward on channels_last weights with every GroupNorm on
+    # the fused route (here the kernel's plain version) against the same
+    # model with NCHW weights on torch's GroupNorm, add and SiLU. Every norm
+    # takes the route and finds its input channels-last: nothing converts
+    # back between the convolutions. In f32 the two are the same arithmetic;
+    # in bf16 the route rounds once after each SiLU where torch rounds twice,
+    # so each is held to the f32 forward on the same weights: the route no
+    # farther from it than the NCHW forward is (1.25x)
+    modules, _, port = pair
+    model, run, n_norms = _layout_case(modules, port, which)
+    assert model.conv_in.weight.is_contiguous(memory_format=torch.channels_last) if which == "unet" else \
+        model.decoder.conv_in.weight.is_contiguous(memory_format=torch.channels_last)
+    model = model.to(dtype)
+    nchw = copy.deepcopy(model).to(memory_format=torch.contiguous_format)
+    with torch.no_grad():
+        want = run(nchw)
+        f32 = run(nchw.float()) if dtype != torch.float32 else None
+        calls = _norm_route_on_cpu(monkeypatch)
+        got = run(model)
+    assert len(calls) == n_norms and all(calls)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    if f32 is None:
+        np.testing.assert_allclose(got.numpy(), want.numpy(), rtol=1e-6, atol=1e-6)
+    else:
+        assert (got - f32).abs().max() <= 1.25 * (want - f32).abs().max()
+
+
+@pytest.mark.parametrize("which", ["unet", "vae_decoder"])
+def test_grad_enabled_forward_keeps_torchs_group_norm(pair, monkeypatch, which):
+    # the kernel has no backward: with grad enabled no norm takes the route,
+    # whatever its input's layout, and the forward is the NCHW one's
+    modules, _, port = pair
+    model, run, _ = _layout_case(modules, port, which, seed=1)
+    with torch.no_grad():
+        want = run(copy.deepcopy(model).to(memory_format=torch.contiguous_format))
+    calls = _norm_route_on_cpu(monkeypatch)
+    with torch.enable_grad():
+        got = run(model.requires_grad_(True))
+    assert calls == []
+    assert got.requires_grad
+    np.testing.assert_allclose(got.detach().numpy(), want.numpy(), rtol=1e-6, atol=1e-6)

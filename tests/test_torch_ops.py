@@ -19,6 +19,8 @@ from photoverse_tpu_torch.ops import _build
 from photoverse_tpu_torch.ops import attention as tattn
 from photoverse_tpu_torch.ops import flash_sdpa as tflash
 from photoverse_tpu_torch.ops import fused_block as tfused
+from photoverse_tpu_torch.models.layers import GroupNorm
+from photoverse_tpu_torch.ops.group_norm import group_norm_nhwc
 from photoverse_tpu_torch.ops.injection import inject_concept_embeddings as tinject
 from photoverse_tpu_torch.utils import trace
 
@@ -236,6 +238,12 @@ def test_no_grad_kernels_refuse_inputs_that_require_grad():
         tfused.fused_cross_ff(h.detach(), bundle, 2)
     with torch.no_grad():
         tfused.fused_cross_ff(h, bundle, 2)
+    x = torch.zeros(1, 8, 2, 2, requires_grad=True)
+    w = torch.ones(8)
+    with pytest.raises(RuntimeError, match="no backward"):
+        group_norm_nhwc(x, w, w, 2, 1e-5)
+    with torch.no_grad():
+        group_norm_nhwc(x, w, w, 2, 1e-5)
 
 
 def test_wrappers_count_no_launch_on_cpu():
@@ -248,6 +256,7 @@ def test_wrappers_count_no_launch_on_cpu():
         w, ctx = _rand_bundle(np.random.RandomState(0), 1, 16, 2, 7, 1)
         tfused.fused_cross_ff(torch.zeros(1, 8, 16), tfused.attach_ctx(
             _torch_bundle(w), tuple(map(T, ctx)), torch.float32), 2)
+        group_norm_nhwc(torch.zeros(1, 16, 2, 2), torch.ones(16), torch.zeros(16), 4, 1e-5, silu=True)
     assert launches == {}
 
 
@@ -267,6 +276,9 @@ def test_wrappers_reject_devices_without_a_kernel():
         tflash.flash_sdpa(q, q, q)
     with pytest.raises(ValueError, match="CPU or CUDA"):
         tfused.fused_cross_ff(torch.zeros(1, 8, 16, device="meta"), {}, 2)
+    w = torch.ones(8, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        group_norm_nhwc(torch.zeros(1, 8, 2, 2, device="meta"), w, w, 2, 1e-5)
 
 
 @pytest.mark.parametrize("what", ["offset", "seq_stride", "head_stride", "inner_stride",
@@ -399,3 +411,48 @@ def test_fused_bundles_are_routed_by_the_kernels_own_rule_on_the_card():
     card = [tuple(types.SimpleNamespace(device=torch.device("cuda"), shape=t.shape) for t in layer)
             for layer in kv]
     assert all(b is None for b in inference.precompute_fused_bundles(models, card))
+
+
+def _bf16_steps(got: torch.Tensor, want: torch.Tensor) -> float:
+    """The largest |got - want| in units of the bf16 spacing at |want|, or
+    at 1/16 for smaller values (a norm's outputs are of order 1; near 0 the
+    f32 arithmetic's own error is many spacings of the value)."""
+    w = want.float()
+    step = torch.exp2(torch.floor(torch.log2(w.abs().clamp_min(2.0**-4))) - 7)
+    return ((got.float() - w).abs() / step).max().item()
+
+
+@pytest.mark.parametrize("f32", [True, False])
+@pytest.mark.parametrize("cpg", [4, 40])
+@pytest.mark.parametrize("add", [False, True])
+@pytest.mark.parametrize("silu", [False, True])
+def test_group_norm_nhwc_plain_is_the_layers_arithmetic(f32, cpg, add, silu):
+    # the kernel's plain version against layers.GroupNorm (then F.silu, as
+    # the unfused blocks run it) on the same bf16 channels-last input, and
+    # both against the norm computed in f64 from that input. The add rounds
+    # in bf16 on every side. The plain version computes in f32 and rounds
+    # once, so it is within half a spacing of the f64 result; the layers
+    # round after the norm and again after the SiLU, so with SiLU the two
+    # may differ by two spacings
+    G, N, H, W = 4, 2, 6, 5
+    C = G * cpg
+    gen = torch.Generator().manual_seed(cpg + 2 * add + 4 * silu + 8 * f32)
+    gn = GroupNorm(G, C, 1e-5, f32).to(torch.bfloat16)
+    with torch.no_grad():
+        gn.weight.copy_(1 + 0.3 * torch.randn(C, generator=gen))
+        gn.bias.copy_(0.3 * torch.randn(C, generator=gen))
+    x = (3 + 2 * torch.randn(N, C, H, W, generator=gen)).bfloat16().contiguous(memory_format=torch.channels_last)
+    t = torch.randn(N, C, generator=gen).bfloat16() if add else None
+    xi = x + t[:, :, None, None] if add else x
+    with torch.no_grad():
+        want = gn(xi)
+        want = torch.nn.functional.silu(want) if silu else want
+        got = group_norm_nhwc(x, gn.weight, gn.bias, G, gn.eps, t, silu)
+        unfused = gn(x, add=t, silu=silu)  # the layer's own route on the CPU: torch's norm, add and SiLU
+    exact = torch.nn.functional.group_norm(xi.double(), G, gn.weight.double(), gn.bias.double(), gn.eps)
+    exact = torch.nn.functional.silu(exact) if silu else exact
+    assert got.dtype == torch.bfloat16 and got.shape == x.shape
+    assert got.is_contiguous(memory_format=torch.channels_last)
+    assert _bf16_steps(got, exact) <= 0.51
+    assert _bf16_steps(got, want) <= (2 if silu else 1)
+    assert torch.equal(unfused, want)
