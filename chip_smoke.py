@@ -8,7 +8,8 @@ Phases (each one fails the run on error):
   3. kernels: each hand-written kernel against its plain PyTorch version on
      the card at the shapes the main paths give it, the server's largest
      batch included (and at ragged lengths for the flash forwards and the
-     flash backward), with CUDA-event times
+     flash backward; kernel 1 also at SDXL's two d=64 levels, one launch
+     a call), with CUDA-event times
      beside the bound from ops/bounds.py and one PyTorch library call on the
      same inputs; planted faults show that each kernel's limit catches them.
   4. pipeline: SD-1.5-width models with random weights from a numpy seed,
@@ -346,6 +347,7 @@ def phase_kernels(source_tpu: dict):
     from photoverse_tpu_torch.ops import flash_sdpa as fs
     from photoverse_tpu_torch.ops import fused_block as fb
     from photoverse_tpu_torch.ops import group_norm as gn
+    from photoverse_tpu_torch.utils import trace
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -404,12 +406,16 @@ def phase_kernels(source_tpu: dict):
         # tensor, 4 local heads; spatial, the local query rows against the
         # gathered keys
         (2, 4096, 4096, 4, 40), (2, 1024, 1024, 4, 80), (2, 2048, 4096, 8, 40), (2, 512, 1024, 8, 80),
+        # SDXL's 128^2 and 64^2 levels at UNet batch 8 (sdxl-serve-saturated-g5)
+        (8, 4096, 4096, 10, 64), (8, 1024, 1024, 20, 64),
     ]
     for B, Sq, Skv, H, d in flash_cases:
         q = (0.3 * torch.randn(B, Sq, H, d, generator=gen, device=dev)).bfloat16()
         k = (0.3 * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
         v = (0.3 * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
-        got = fs.flash_sdpa(q, k, v)
+        with trace.counting("launch.") as launched:
+            got = fs.flash_sdpa(q, k, v)
+        check(launched == {"flash_sdpa": 1}, f"flash_sdpa {[B, Sq, Skv, H, d]} launches {launched}")
         want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
         err = (got.float() - want).abs().max().item()
         tol = FLASH_RTOL * want.abs().max().item()

@@ -288,8 +288,12 @@ class PhotoVerseService:
             from photoverse_tpu_torch.ops import _build
 
             _build.load_library()
-        factor = 2 ** (len(self.models.vae.config.block_out_channels) - 1)
-        self.latent_size = args.resolution // factor
+        self.latent_size = args.resolution // self.models.vae_scale
+        # an SDXL bundle's rows also carry their six time ids (its added
+        # conditioning), batched and padded with the rest
+        extra = ("add_time_ids",) if self.models.sdxl else ()
+        self._example_keys = self._EXAMPLE_KEYS + extra
+        self._device_keys = self._DEVICE_KEYS + extra
         self.clip_size = self.models.vision_encoder.config.image_size
         self._pipelines = {}
         self._shapes = []  # (batch, steps, guidance, scheduler) run so far, in order
@@ -438,7 +442,7 @@ class PhotoVerseService:
         import torch
 
         out = {}
-        for k in self._DEVICE_KEYS:
+        for k in self._device_keys:
             t = torch.from_numpy(example[k])
             if self.device.type == "cuda":
                 t = t.pin_memory().to(self.device, non_blocking=True)
@@ -655,7 +659,7 @@ class PhotoVerseService:
         batch = {
             k: padded([g.example[k] for g in group], 0, np.concatenate,
                       lambda x, r: np.repeat(x[-1:], r, axis=0))
-            for k in self._EXAMPLE_KEYS
+            for k in self._example_keys
         }
         noise = padded([self._make_noise(g.seed, g.n) for g in group], 0, torch.cat,
                        lambda x, r: x[-1:].expand(r, *x.shape[1:]))
@@ -745,7 +749,13 @@ class PhotoVerseService:
         (numpy, the five keys, n rows), `key` = (steps, guidance,
         scheduler). Enqueues it under dynamic batching, else runs it at
         once. Returns {"images": uint8 (n, H, W, 3), "latency_s",
-        "batch_rows"}; raises ServiceOverloaded when the queue is full."""
+        "batch_rows"}; raises ServiceOverloaded when the queue is full.
+        An SDXL service's example may carry `add_time_ids` (n, 6); rows
+        without get the served resolution's, uncropped."""
+        if self.models.sdxl and "add_time_ids" not in example:
+            from photoverse_tpu_torch.engine.inference import sdxl_time_ids
+
+            example = dict(example, add_time_ids=sdxl_time_ids(n, self.args.resolution, "cpu").numpy())
         with self._state_lock:
             self._stats["requests"] += 1
         request = next(self._request_ids)

@@ -1,7 +1,7 @@
-// Flash-attention forward for head dims 40 and 80 on Hopper's warpgroup
+// Flash-attention forward for head dims 40, 64 and 80 on Hopper's warpgroup
 // tensor cores: the kernel behind `ops/flash_sdpa.py:flash_sdpa` and, with
 // its log-sum-exp output, behind `flash_fwd_lse` (the forward of
-// `flash_sdpa_diff`) at the UNet's head dims. The d = 512 paths have their
+// `flash_sdpa_diff`) at the UNet's head dims (SD-1.5's 40 and 80, SDXL's 64). The d = 512 paths have their
 // own kernel in flash_fwd_stream.cu.
 //
 // Replaces the TPU kernels photoverse_tpu/ops/flash_sdpa.py:_kernel (via
@@ -23,9 +23,10 @@
 //     64 columns (128 bytes, the 128-byte swizzle, so the descriptors are
 //     the plain K-major / MN-major ones and a k16 step is an address
 //     offset): d = 40 is one box whose columns 40..63 TMA fills with
-//     zeros, of which q k^T reads three k16 steps (48 columns); d = 80 is
-//     two boxes, and its five k16 steps read 64 + 16 columns. P V has
-//     N = d exactly (40 or 80).
+//     zeros, of which q k^T reads three k16 steps (48 columns); d = 64 is
+//     one box read whole in four k16 steps; d = 80 is two boxes, and its
+//     five k16 steps read 64 + 16 columns. P V has N = d exactly (40, 64
+//     or 80).
 //   - The softmax stays in registers: a wgmma accumulator holds each row
 //     in the four lanes of a quad, so row max and row sum are two quad
 //     shuffles; ex2.approx with log2(e) folded into the scale; m, l and
@@ -33,7 +34,8 @@
 //     No score passes through shared memory and no block-wide barrier sits
 //     in the loop.
 //   - K and V tiles of 64 keys arrive through a ring of NST stages (three
-//     at d = 40, two at d = 80: what lets two blocks share an SM's shared
+//     at d = 40 and d = 64, whose tiles are one box each and so the same
+//     bytes, two at d = 80: what lets two blocks share an SM's shared
 //     memory), each with a full
 //     and an empty mbarrier; the producer runs ahead of the consumers, so
 //     copies are in flight while the tensor cores work.
@@ -64,7 +66,7 @@ template <int D>
 struct Cfg {
   static constexpr int NWG = 2;                    // consumer warpgroups
   static constexpr int BK = 64;                    // keys a tile
-  static constexpr int NST = D == 40 ? 3 : 2;      // ring stages
+  static constexpr int NST = D == 80 ? 2 : 3;      // ring stages
   static constexpr int MINB = 2;                   // blocks an SM
   static constexpr int BQ = 64 * NWG;
   static constexpr int NT = 128 * (NWG + 1);       // + the producer's warpgroup
@@ -276,7 +278,7 @@ cudaError_t launch(const Problem& p, cudaStream_t stream) {
 
 }  // namespace
 
-// q (B, Sq, H, D), k/v (B, Skv, H, D) bf16, D 40 or 80 with unit stride, the
+// q (B, Sq, H, D), k/v (B, Skv, H, D) bf16, D 40, 64 or 80 with unit stride, the
 // other strides (h, s, b order, in elements) multiples of 8 and the data
 // 16-byte aligned (TMA's rules); out a contiguous (B, Sq, H, D) bf16
 // tensor; lse null or a contiguous (B, H, Sq) f32 tensor. Returns a
@@ -291,6 +293,7 @@ extern "C" int pv_flash_fwd_wgmma(const void* q, const void* k, const void* v, v
                   {k_sh, k_ss, k_sb}, {v_sh, v_ss, v_sb}};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (D == 40) return launch<40>(p, s);
+  if (D == 64) return launch<64>(p, s);
   if (D == 80) return launch<80>(p, s);
   return cudaErrorInvalidValue;
 }

@@ -14,7 +14,8 @@ import os
 
 SS = (64, 80)       # 64 x 64 score tiles (q k^T, g v^T and their transposes); the fused tail's products
 RSK = (64,)         # the backward's score tiles with the block's own rows held in registers
-RS = (40, 80, 256)  # p v and the backward's ds k, p^T g, ds^T q at head dims 40 and 80; half of d = 512
+RS = (40, 64, 80, 256)  # p v at head dims 40, 64 and 80 and the backward's ds k, p^T g, ds^T q at 40 and 80;
+                        # half of d = 512
 
 HEAD = """// Generated by gen_wgmma.py; edit that script, not this file.
 // m64nNk16 bf16 wgmma with f32 accumulators, N / 2 registers a thread:

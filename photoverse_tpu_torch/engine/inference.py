@@ -19,6 +19,17 @@ core/schedulers.py. Port of photoverse_tpu/engine/inference.py.
     so a row's trajectory does not depend on the batch it runs in.
   - `ip_mask` restricts where the identity acts (doubled under guidance);
     the fused tail is off then.
+  - An SDXL bundle (models.sdxl): both text encoders read the prompt with
+    their own adapter's concept tokens spliced in (a `text_encoder` span
+    each, with attributes `encoder` and `rows`); the context is their
+    penultimate states side by side (768 + 1280), and the second encoder's
+    projected pooled output and each row's six time ids (example key
+    `add_time_ids`, (original h, w, crop top, left, target h, w); the
+    image's own size and no crop when absent) are the UNet's added
+    conditioning. Under guidance the unconditional prompt context and
+    pooled embedding are zeros (SDXL's force_zeros_for_empty_prompt, so no
+    negative prompt is encoded) and the unconditional identity comes from
+    the zero image, as on the SD-1.5 path.
   - `denoise(num_grad_steps=n)` runs all but the last n steps under
     torch.no_grad() with eval fusion and the cached context K/V; the last
     n steps carry gradients, recompute the context K/V (so gradients reach
@@ -53,6 +64,8 @@ from photoverse_tpu_torch.utils import trace
 
 __all__ = [
     "encode_condition",
+    "encode_prompt",
+    "sdxl_time_ids",
     "precompute_ctx_kv",
     "precompute_fused_bundles",
     "row_seed",
@@ -130,16 +143,26 @@ def precompute_fused_bundles(models: PhotoVerseModels, kv_cache):
     out = []
     for blk, kv in zip(models.unet.cross_attentions(), kv_cache):
         c = blk.attn2.to_out[0].out_features
-        served = bundle_eligible(c, cfg.num_heads, cfg.fused_block_max_channels)
+        served = bundle_eligible(c, blk.heads, cfg.fused_block_max_channels)
         if served and kv[0].device.type == "cuda":
-            served = kernel_serves(c, cfg.num_heads, kv[0].shape[1], kv[2].shape[1],
+            served = kernel_serves(c, blk.heads, kv[0].shape[1], kv[2].shape[1],
                                    blk.ff.net[2].in_features)
         if served:
-            b = build_block_bundle(blk, cfg.num_heads, dtype=models.dtype)
+            b = build_block_bundle(blk, blk.heads, dtype=models.dtype)
             out.append(attach_ctx(b, kv, models.dtype))
         else:
             out.append(None)
     return tuple(out)
+
+
+def _clip_features(models: PhotoVerseModels, pixel_values_clip: torch.Tensor) -> torch.Tensor:
+    """(K, B, S, D): the CLIP ViT's last hidden state and those of its
+    collected layers, without gradient (the reference detaches them)."""
+    with torch.no_grad():
+        last, collected = models.vision_encoder(
+            pixel_values_clip, collect_layers=models.image_encoder_layers_idx
+        )
+    return torch.stack([last, *collected], dim=0)
 
 
 def encode_condition(
@@ -147,13 +170,28 @@ def encode_condition(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """CLIP-vision features -> (concept text embeddings, identity context).
     The features carry no gradient (the reference detaches them)."""
-    with torch.no_grad():
-        last, collected = models.vision_encoder(
-            pixel_values_clip, collect_layers=models.image_encoder_layers_idx
-        )
-    feats = torch.stack([last, *collected], dim=0)  # (K, B, S, D)
+    feats = _clip_features(models, pixel_values_clip)
     return (models.text_adapter(feats, token_index=token_index),
             models.image_adapter(feats, token_index=token_index))
+
+
+def encode_prompt(models: PhotoVerseModels, ids: torch.Tensor, concepts, pidx: torch.Tensor):
+    """An SDXL bundle's prompt: both encoders with their concept tokens
+    (`concepts` = (for encoder 1, for encoder 2)) spliced in at `pidx`;
+    returns (context (B, S, 768 + 1280), pooled (B, 1280))."""
+    rows = ids.shape[0]
+    with trace.span("text_encoder", encoder=1, rows=rows):
+        h1, _ = models.text_encoder(ids, concepts[0], pidx)
+    with trace.span("text_encoder", encoder=2, rows=rows):
+        h2, pooled = models.text_encoder_2(ids, concepts[1], pidx)
+    return torch.cat([h1, h2], dim=-1), pooled
+
+
+def sdxl_time_ids(rows: int, size: int, device) -> torch.Tensor:
+    """(rows, 6) f32: original size, crop top-left, target size of a
+    square `size` image with no crop, SDXL's default."""
+    one = torch.tensor([size, size, 0, 0, size, size], dtype=torch.float32, device=device)
+    return one.expand(rows, 6).clone()
 
 
 def denoise(
@@ -172,6 +210,8 @@ def denoise(
     ancestral_noise: Optional[torch.Tensor] = None,  # (N, B, h, w, 4)
     row_generators: Optional[Sequence[torch.Generator]] = None,  # B of them
     spatial=None,  # parallel.sp.Spatial: `latents` are this rank's rows
+    added_cond=None,  # SDXL: (pooled (B, D), time ids (B, 6))
+    uncond_added_cond=None,  # SDXL under guidance: the unconditional pair
 ) -> torch.Tensor:
     """The full trajectory of `solver`; returns the final latents.
 
@@ -215,6 +255,8 @@ def denoise(
             id_ctx = torch.cat([uncond_id_ctx, id_ctx], dim=0)
             if ip_mask is not None:
                 ip_mask = torch.cat([ip_mask, ip_mask], dim=0)
+            if added_cond is not None:
+                added_cond = tuple(torch.cat([u, c], dim=0) for u, c in zip(uncond_added_cond, added_cond))
         # the prefix never carries gradients when grad steps follow it
         prefix_mode = torch.no_grad() if num_grad_steps > 0 else contextlib.nullcontext()
         with prefix_mode:
@@ -229,13 +271,13 @@ def denoise(
             t = t.expand(x.shape[0])
             if grad_step is None:
                 eps, _ = models.unet(x, t, text_ctx, id_ctx, ctx_kv=kv_cache, fused_bundles=fused,
-                                     ip_mask=ip_mask)
+                                     ip_mask=ip_mask, added_cond=added_cond)
             else:  # recompute the context K/V so gradients reach their projections
                 kw = {}
                 if train:
                     d = step_draws[grad_step]
                     kw = dict(train=True, fusion_u=d["fusion_u"], dropout_generator=d.get("dropout"))
-                eps, _ = models.unet(x, t, text_ctx, id_ctx, ip_mask=ip_mask, **kw)
+                eps, _ = models.unet(x, t, text_ctx, id_ctx, ip_mask=ip_mask, added_cond=added_cond, **kw)
             if use_cfg:
                 eps_u, eps_c = eps.chunk(2, dim=0)
                 eps = eps_u + guidance_scale * (eps_c - eps_u)
@@ -286,7 +328,8 @@ def run_inference(
 
     example keys (NHWC, numpy or torch): pixel_values_clip (B, 224, 224, 3),
     text_input_ids (B, 77), concept_placeholder_idx (B,) or (B, 1), optional
-    negative_text_input_ids, and with from_noised_image pixel_values
+    negative_text_input_ids (not read for an SDXL bundle) and add_time_ids
+    (B, 6) (SDXL only), and with from_noised_image pixel_values
     (B, H, W, 3) in [-1, 1]. Returns images (B, H, W, 3) f32 in [-1, 1].
 
     Random draws, all from `generator` (when None, a generator seeded with
@@ -347,12 +390,28 @@ def run_inference(
     if ip_mask is not None:
         ip_mask = torch.as_tensor(ip_mask, device=dev).float()
 
+    added_cond = uncond_added = None
     with trace.span("conditioning"):
-        concept, id_ctx = encode_condition(models, px_clip, token_index)
-        text_ctx, _ = models.text_encoder(ids, concept, pidx.reshape(B))
+        if models.sdxl:
+            feats = _clip_features(models, px_clip)
+            id_ctx = models.image_adapter(feats, token_index=token_index)
+            concepts = (models.text_adapter(feats, token_index=token_index),
+                        models.text_adapter_2(feats, token_index=token_index))
+            text_ctx, pooled = encode_prompt(models, ids, concepts, pidx.reshape(B))
+            time_ids = example.get("add_time_ids")
+            if time_ids is None:
+                time_ids = sdxl_time_ids(B, latent_size * models.vae_scale, dev)
+            added_cond = (pooled, torch.as_tensor(time_ids, device=dev).float())
+        else:
+            concept, id_ctx = encode_condition(models, px_clip, token_index)
+            text_ctx, _ = models.text_encoder(ids, concept, pidx.reshape(B))
 
         uncond_text_ctx = uncond_id_ctx = None
-        if guidance_scale != 1.0:
+        if guidance_scale != 1.0 and models.sdxl:
+            _, uncond_id_ctx = encode_condition(models, torch.zeros_like(px_clip), token_index)
+            uncond_text_ctx = torch.zeros_like(text_ctx)
+            uncond_added = (torch.zeros_like(added_cond[0]), added_cond[1])
+        elif guidance_scale != 1.0:
             neg = example.get("negative_text_input_ids")
             if neg is None:
                 neg = uncond_input_ids
@@ -367,6 +426,7 @@ def run_inference(
     latents = denoise(
         models, solver, latents, text_ctx, id_ctx, uncond_text_ctx, uncond_id_ctx, guidance_scale,
         ip_mask=ip_mask, ancestral_noise=ancestral_noise, row_generators=row_generators, spatial=spatial,
+        added_cond=added_cond, uncond_added_cond=uncond_added,
     )
     with trace.span("decode"):
         images = models.vae.decode(latents / models.scaling_factor)
@@ -376,7 +436,7 @@ def run_inference(
 
 
 _ROW_KEYS = ("pixel_values", "pixel_values_clip", "text_input_ids", "concept_placeholder_idx",
-             "negative_text_input_ids")
+             "negative_text_input_ids", "add_time_ids")
 
 
 def run_inference_sharded(

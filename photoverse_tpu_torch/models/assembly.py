@@ -7,6 +7,13 @@ plus the DDPM schedule; its state dict is the counterpart of the JAX
 package's PhotoVerseParams. `load_models` builds it from a local
 diffusers-layout SD-1.5 directory (tokenizer/ text_encoder/ vae/ unet/
 scheduler/ image_encoder/) and, optionally, a PhotoVerse checkpoint.
+
+An SDXL bundle (`build_models(text_config_2=...)`, `sdxl_configs`) also
+holds `text_encoder_2` (OpenCLIP ViT-bigG/14's text tower, with its pooled
+projection) and `text_adapter_2`, the text adapter whose concept tokens go
+into the second encoder; its image adapter writes the UNet's 2048-wide
+context. An SD-1.5 bundle has neither (both attributes are None), so its
+modules and state dict are those of the six-model bundle.
 """
 
 from __future__ import annotations
@@ -31,14 +38,17 @@ from photoverse_tpu_torch.models.clip import (
 from photoverse_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from photoverse_tpu_torch.models.vae import AutoencoderKL, VAEConfig
 
-__all__ = ["PhotoVerseModels", "build_models", "init_params", "load_models", "cast_params", "model_configs"]
+__all__ = ["PhotoVerseModels", "build_models", "init_params", "load_models", "cast_params", "model_configs",
+           "sdxl_configs"]
 
 MODEL_NAMES = ("text_encoder", "vision_encoder", "unet", "vae", "text_adapter", "image_adapter")
+SDXL_MODEL_NAMES = ("text_encoder_2", "text_adapter_2")
 
 
 class PhotoVerseModels(nn.Module):
     def __init__(self, text_encoder, vision_encoder, unet, vae, text_adapter, image_adapter,
-                 schedule: DDPMSchedule, image_encoder_layers_idx: Tuple[int, ...]):
+                 schedule: DDPMSchedule, image_encoder_layers_idx: Tuple[int, ...],
+                 text_encoder_2=None, text_adapter_2=None):
         super().__init__()
         self.text_encoder = text_encoder
         self.vision_encoder = vision_encoder
@@ -48,10 +58,27 @@ class PhotoVerseModels(nn.Module):
         self.image_adapter = image_adapter
         self.schedule = schedule
         self.image_encoder_layers_idx = tuple(image_encoder_layers_idx)
+        self.text_encoder_2 = text_encoder_2
+        self.text_adapter_2 = text_adapter_2
+
+    @property
+    def sdxl(self) -> bool:
+        """Whether this is an SDXL bundle (two text encoders, added
+        conditioning)."""
+        return self.text_encoder_2 is not None
+
+    @property
+    def model_names(self) -> Tuple[str, ...]:
+        return MODEL_NAMES + (SDXL_MODEL_NAMES if self.sdxl else ())
 
     @property
     def num_tokens(self) -> int:
         return len(self.image_encoder_layers_idx) + 1
+
+    @property
+    def vae_scale(self) -> int:
+        """Pixels per latent along a side."""
+        return 2 ** (len(self.vae.config.block_out_channels) - 1)
 
     @property
     def scaling_factor(self) -> float:
@@ -79,6 +106,7 @@ def build_models(
     vae_config: Optional[VAEConfig] = None,
     text_config: Optional[CLIPTextConfig] = None,
     vision_config: Optional[CLIPVisionConfig] = None,
+    text_config_2: Optional[CLIPTextConfig] = None,
     device="cuda",
 ) -> PhotoVerseModels:
     """Construct the models at SD-1.5 scale (or the given configs) on
@@ -88,7 +116,9 @@ def build_models(
     in through `unet_config`). `int8_conditioning` sets `int8_dense` on both
     CLIP configs: W8A8 int8 layers in the frozen encoders (ops/quant.py),
     inference-only. The UNet's and the VAE's convolution weights are
-    channels_last, the layout their activations keep."""
+    channels_last, the layout their activations keep. `text_config_2`
+    builds an SDXL bundle (see `sdxl_configs`): the second text encoder,
+    its own text adapter, and the text adapters at their encoders' widths."""
     unet_cfg = unet_config or UNetConfig(
         use_flash_attention=use_flash_attention,
         fast_attention_scores=fast_attention_scores,
@@ -100,21 +130,55 @@ def build_models(
     if int8_conditioning:
         text_cfg = dataclasses.replace(text_cfg, int8_dense=True)
         vision_cfg = dataclasses.replace(vision_cfg, int8_dense=True)
+    if int8_conditioning and text_config_2 is not None:
+        text_config_2 = dataclasses.replace(text_config_2, int8_dense=True)
     K = extra_num_tokens + 1
+    cd = unet_cfg.cross_attention_dim
     with torch.device(device):
-        adapter = lambda: PhotoVerseAdapter(  # noqa: E731
-            vision_cfg.hidden_size, unet_cfg.cross_attention_dim, K
-        )
+        adapter = lambda out: PhotoVerseAdapter(vision_cfg.hidden_size, out, K)  # noqa: E731
+        sdxl = {}
+        if text_config_2 is not None:
+            if text_cfg.hidden_size + text_config_2.hidden_size != cd:
+                raise ValueError(f"the two text encoders' widths {text_cfg.hidden_size} + "
+                                 f"{text_config_2.hidden_size} must make the UNet's context {cd}")
+            sdxl = dict(text_encoder_2=CLIPTextEncoder(text_config_2),
+                        text_adapter_2=adapter(text_config_2.hidden_size))
         models = PhotoVerseModels(
             CLIPTextEncoder(text_cfg), CLIPVisionEncoder(vision_cfg),
             UNet2DCondition(unet_cfg), AutoencoderKL(vae_cfg),
-            adapter(), adapter(),
-            make_sd15_schedule(), image_encoder_layers_idx,
+            adapter(text_cfg.hidden_size if sdxl else cd), adapter(cd),
+            make_sd15_schedule(), image_encoder_layers_idx, **sdxl,
         )
     models = models.to(dtype=dtype).eval().requires_grad_(False)
     for m in (models.unet, models.vae):
         m.to(memory_format=torch.channels_last)
     return models
+
+
+def sdxl_configs(lora_rank: int = 0, lora_alpha: float = 1.0, use_flash_attention: bool = False,
+                 fast_attention_scores: bool = False, fast_norms: bool = False) -> dict:
+    """build_models' configuration arguments for Stable Diffusion XL base
+    1.0 at its published widths (the unet/, vae/, text_encoder/ and
+    text_encoder_2/ config.json files of stabilityai/stable-diffusion-xl-
+    base-1.0): a three-level UNet at 320/640/1280 with no attention at the
+    first level, 1, 2 and 10 transformer blocks a level (10 in the mid
+    block), 5/10/20 heads of 64, linear projections, a 2048-wide context and
+    "text_time" added conditioning; CLIP ViT-L/14's text tower and OpenCLIP
+    ViT-bigG/14's (1280 wide, 32 layers, gelu, projection 1280), both read
+    at their penultimate layer; the SD VAE with scaling factor 0.13025."""
+    unet = UNetConfig(
+        block_out_channels=(320, 640, 1280), layers_per_block=2, cross_attention_dim=2048, num_heads=20,
+        norm_num_groups=32, lora_rank=lora_rank, lora_alpha=lora_alpha, level_heads=(5, 10, 20),
+        transformer_layers_per_block=(1, 2, 10),
+        attention_levels=(False, True, True), use_linear_projection=True, addition_embed_type="text_time",
+        addition_time_embed_dim=256, addition_text_embed_dim=1280, use_flash_attention=use_flash_attention,
+        fast_attention_scores=fast_attention_scores, fast_norms=fast_norms)
+    vae = VAEConfig(scaling_factor=0.13025, use_flash_attention=use_flash_attention, fast_norms=fast_norms)
+    text = CLIPTextConfig(hidden_act="quick_gelu", penultimate_output=True)
+    text_2 = CLIPTextConfig(hidden_size=1280, num_layers=32, num_heads=20, intermediate_size=5120,
+                            hidden_act="gelu", penultimate_output=True, projection_dim=1280)
+    return dict(unet_config=unet, vae_config=vae, text_config=text, text_config_2=text_2,
+                vision_config=CLIPVisionConfig())
 
 
 def _fill(name: str, module: nn.Module, shape, rng: np.random.Generator) -> np.ndarray:
@@ -156,8 +220,9 @@ def init_params(models: PhotoVerseModels, seed: int = 0) -> PhotoVerseModels:
 
     from concurrent.futures import ThreadPoolExecutor
 
-    with ThreadPoolExecutor(len(MODEL_NAMES)) as pool:
-        for f in [pool.submit(fill, i, name) for i, name in enumerate(MODEL_NAMES)]:
+    names = models.model_names
+    with ThreadPoolExecutor(len(names)) as pool:
+        for f in [pool.submit(fill, i, name) for i, name in enumerate(names)]:
             f.result()
     return models
 

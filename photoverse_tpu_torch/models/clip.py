@@ -1,13 +1,18 @@
 """CLIP text + vision encoders (port of photoverse_tpu/models/clip.py).
 
-Pre-LN transformer blocks with quick_gelu, as in OpenAI CLIP. Module
-names follow the transformers CLIPTextModel / CLIPVisionModel state dicts
-(without the `text_model.` / `vision_model.` prefix), which
-`convert_clip_text` / `convert_clip_vision` read.
+Pre-LN transformer blocks with quick_gelu, as in OpenAI CLIP, or with the
+exact gelu (`CLIPTextConfig.hidden_act`, OpenCLIP ViT-bigG/14's text
+tower, SDXL's second encoder). Module names follow the transformers
+CLIPTextModel / CLIPVisionModel state dicts (without the `text_model.` /
+`vision_model.` prefix), which `convert_clip_text` / `convert_clip_vision`
+read; CLIPTextModelWithProjection's `text_projection` sits beside them.
 
   - The text encoder splices the concept embeddings in at the placeholder
     (ops/injection.py), applies a causal mask and pools at the EOT token
-    (the highest token id of each row).
+    (the highest token id of each row). SDXL's encoders return the
+    penultimate layer's output (`penultimate_output`: hidden_states[-2],
+    before the final LayerNorm), and the second one projects its pooled
+    output (`projection_dim`: `text_projection`, no bias).
   - The vision encoder returns its last hidden state plus the hidden
     states listed in `collect_layers`, in HF hidden_states indexing
     (0 = embedding output after pre-LN, i = output of encoder layer i).
@@ -23,12 +28,13 @@ import dataclasses
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from photoverse_tpu_torch.ops.injection import inject_concept_embeddings
 from photoverse_tpu_torch.ops.quant import Int8Linear
 
-__all__ = ["CLIPTextConfig", "CLIPVisionConfig", "CLIPTextEncoder", "CLIPVisionEncoder", "quick_gelu"]
+__all__ = ["CLIPTextConfig", "CLIPVisionConfig", "CLIPTextEncoder", "CLIPVisionEncoder", "quick_gelu", "ACTIVATIONS"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -42,6 +48,13 @@ class CLIPTextConfig:
     layer_norm_eps: float = 1e-5
     # W8A8 int8 projections and MLPs (ops/quant.py); inference-only
     int8_dense: bool = False
+    hidden_act: str = "quick_gelu"  # or "gelu" (exact, erf)
+    # the last hidden state after final_layer_norm (False) or the output of
+    # the last layer but one, before it (True: SDXL's hidden_states[-2])
+    penultimate_output: bool = False
+    # > 0: the pooled output through text_projection (no bias), as
+    # CLIPTextModelWithProjection's text_embeds
+    projection_dim: int = 0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -64,6 +77,9 @@ class CLIPVisionConfig:
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
     return x * torch.sigmoid(1.702 * x)
+
+
+ACTIVATIONS = {"quick_gelu": quick_gelu, "gelu": F.gelu}
 
 
 class _SelfAttn(nn.Module):
@@ -90,24 +106,25 @@ class _SelfAttn(nn.Module):
 
 
 class _MLP(nn.Module):
-    def __init__(self, dim: int, hidden: int, linear=nn.Linear):
+    def __init__(self, dim: int, hidden: int, linear=nn.Linear, act=quick_gelu):
         super().__init__()
         self.fc1 = linear(dim, hidden)
         self.fc2 = linear(hidden, dim)
+        self.act = act
 
     def forward(self, x):
-        return self.fc2(quick_gelu(self.fc1(x)))
+        return self.fc2(self.act(self.fc1(x)))
 
 
 class _CLIPLayer(nn.Module):
     """x += attn(ln1(x)); x += mlp(ln2(x))."""
 
-    def __init__(self, dim: int, heads: int, hidden: int, eps: float, linear=nn.Linear):
+    def __init__(self, dim: int, heads: int, hidden: int, eps: float, linear=nn.Linear, act=quick_gelu):
         super().__init__()
         self.layer_norm1 = nn.LayerNorm(dim, eps=eps)
         self.self_attn = _SelfAttn(dim, heads, linear)
         self.layer_norm2 = nn.LayerNorm(dim, eps=eps)
-        self.mlp = _MLP(dim, hidden, linear)
+        self.mlp = _MLP(dim, hidden, linear, act)
 
     def forward(self, x, mask=None):
         x = x + self.self_attn(self.layer_norm1(x), mask)
@@ -118,8 +135,9 @@ class _Encoder(nn.Module):
     def __init__(self, c):
         super().__init__()
         linear = Int8Linear if c.int8_dense else nn.Linear
+        act = ACTIVATIONS[getattr(c, "hidden_act", "quick_gelu")]
         self.layers = nn.ModuleList(
-            _CLIPLayer(c.hidden_size, c.num_heads, c.intermediate_size, c.layer_norm_eps, linear)
+            _CLIPLayer(c.hidden_size, c.num_heads, c.intermediate_size, c.layer_norm_eps, linear, act)
             for _ in range(c.num_layers))
 
 
@@ -132,7 +150,9 @@ class _TextEmbeddings(nn.Module):
 
 class CLIPTextEncoder(nn.Module):
     """CLIP text transformer with concept-token injection.
-    Returns (last_hidden_state, pooled_output)."""
+    Returns (last_hidden_state, pooled_output), or under the config's
+    `penultimate_output` / `projection_dim` (penultimate hidden state,
+    projected pooled output)."""
 
     def __init__(self, config: CLIPTextConfig = CLIPTextConfig()):
         super().__init__()
@@ -140,6 +160,8 @@ class CLIPTextEncoder(nn.Module):
         self.embeddings = _TextEmbeddings(c)
         self.encoder = _Encoder(c)
         self.final_layer_norm = nn.LayerNorm(c.hidden_size, eps=c.layer_norm_eps)
+        if c.projection_dim:
+            self.text_projection = nn.Linear(c.hidden_size, c.projection_dim, bias=False)
 
     def forward(
         self,
@@ -155,11 +177,16 @@ class CLIPTextEncoder(nn.Module):
             x = inject_concept_embeddings(x, concept_embeds, placeholder_idx)
         x = x + self.embeddings.position_embedding(torch.arange(S, device=x.device))[None]
         causal = torch.full((S, S), torch.finfo(torch.float32).min, device=x.device).triu(1)
+        penultimate = x
         for layer in self.encoder.layers:
+            penultimate = x
             x = layer(x, causal)
         x = self.final_layer_norm(x)
         eot = input_ids.argmax(dim=-1)
-        return x, x[torch.arange(B, device=x.device), eot]
+        pooled = x[torch.arange(B, device=x.device), eot]
+        if self.config.projection_dim:
+            pooled = self.text_projection(pooled)
+        return (penultimate if self.config.penultimate_output else x), pooled
 
 
 class _VisionEmbeddings(nn.Module):

@@ -1,6 +1,14 @@
 """SD-1.5 UNet with dual-context (text + identity) cross-attention, eval
 and train modes. Port of photoverse_tpu/models/unet.py.
 
+The same class builds the SDXL base UNet: per-level head counts
+(`level_heads`) and transformer depth (`transformer_layers_per_block`; the
+mid block takes the last level's), levels without attention (`attention_levels`),
+linear proj_in / proj_out (`use_linear_projection`) and the "text_time"
+added conditioning (`addition_embed_type`): the pooled text embedding and
+the sinusoidal embeddings of six time ids through `add_embedding`, added to
+the time embedding. The defaults build SD-1.5, module for module.
+
 Module names follow the diffusers UNet2DConditionModel state dict with the
 PhotoVerse processor's `attn2.processor.to_{k,v}_ip.0`, which
 `convert_unet` reads. The public forward keeps the JAX package's NHWC
@@ -103,10 +111,44 @@ class UNetConfig:
     fused_blocks: bool = False
     fused_block_max_channels: int = 320
     remat: bool = False
+    # SDXL's shape (None / the defaults: SD-1.5's): heads per level (else
+    # num_heads everywhere), transformer blocks per attention at each level
+    # (else 1; the mid block takes the last level's, as diffusers' does),
+    # which levels have attention (else all but the last), linear
+    # projections around the blocks, and "text_time" added conditioning
+    # from a pooled text embedding of `addition_text_embed_dim` and six
+    # time ids
+    level_heads: Optional[Tuple[int, ...]] = None
+    transformer_layers_per_block: Optional[Tuple[int, ...]] = None
+    attention_levels: Optional[Tuple[bool, ...]] = None
+    use_linear_projection: bool = False
+    addition_embed_type: Optional[str] = None
+    addition_time_embed_dim: int = 256
+    addition_text_embed_dim: int = 1280
 
     @property
     def time_embed_dim(self) -> int:
         return self.block_out_channels[0] * 4
+
+    def heads(self, level: int) -> int:
+        return self.num_heads if self.level_heads is None else self.level_heads[level]
+
+    def depth(self, level: int) -> int:
+        return 1 if self.transformer_layers_per_block is None else self.transformer_layers_per_block[level]
+
+    def attends(self, level: int) -> bool:
+        n = len(self.block_out_channels)
+        return level < n - 1 if self.attention_levels is None else self.attention_levels[level]
+
+    @property
+    def added_cond_dim(self) -> int:
+        """add_embedding's input: the pooled text embedding and six time ids'
+        sinusoidal embeddings (0 without added conditioning)."""
+        if self.addition_embed_type is None:
+            return 0
+        if self.addition_embed_type != "text_time":
+            raise ValueError(f"addition_embed_type {self.addition_embed_type!r} is not built (only text_time)")
+        return self.addition_text_embed_dim + 6 * self.addition_time_embed_dim
 
 
 def timestep_embedding(timesteps: torch.Tensor, dim: int, max_period: float = 10000.0) -> torch.Tensor:
@@ -298,14 +340,14 @@ class _FeedForward(nn.Module):
 
 
 class BasicTransformerBlock(nn.Module):
-    def __init__(self, ch: int, cfg: UNetConfig, tp: Optional[TPShard] = None):
+    def __init__(self, ch: int, cfg: UNetConfig, tp: Optional[TPShard] = None, heads: Optional[int] = None):
         super().__init__()
         nf = not cfg.fast_norms
-        self.heads = cfg.num_heads
+        self.heads = heads = heads or cfg.num_heads
         self.norm1 = LayerNorm(ch, 1e-5, nf)
-        self.attn1 = SelfAttention(ch, cfg.num_heads, cfg, tp)
+        self.attn1 = SelfAttention(ch, heads, cfg, tp)
         self.norm2 = LayerNorm(ch, 1e-5, nf)
-        self.attn2 = DualCrossAttention(ch, cfg.num_heads, cfg, tp)
+        self.attn2 = DualCrossAttention(ch, heads, cfg, tp)
         self.norm3 = LayerNorm(ch, 1e-5, nf)
         self.ff = _FeedForward(ch, tp)
 
@@ -322,16 +364,22 @@ class BasicTransformerBlock(nn.Module):
 
 
 class Transformer2D(nn.Module):
-    """GN -> proj_in -> BasicTransformerBlock -> proj_out (+ residual)."""
+    """GN -> proj_in -> `depth` BasicTransformerBlocks -> proj_out (+
+    residual). proj_in / proj_out are 1x1 convolutions before and after the
+    permute to (B, S, C), or, with `use_linear_projection`, linear layers
+    after and before it."""
 
     spatial = None  # parallel.sp.Spatial
 
-    def __init__(self, ch: int, cfg: UNetConfig, tp: Optional[TPShard] = None):
+    def __init__(self, ch: int, cfg: UNetConfig, tp: Optional[TPShard] = None, heads: Optional[int] = None,
+                 depth: int = 1):
         super().__init__()
+        self.linear = cfg.use_linear_projection
+        proj = (lambda: nn.Linear(ch, ch)) if self.linear else (lambda: nn.Conv2d(ch, ch, 1))  # noqa: E731
         self.norm = GroupNorm(cfg.norm_num_groups, ch, 1e-6, not cfg.fast_norms)
-        self.proj_in = nn.Conv2d(ch, ch, 1)
-        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, cfg, tp)])
-        self.proj_out = nn.Conv2d(ch, ch, 1)
+        self.proj_in = proj()
+        self.transformer_blocks = nn.ModuleList([BasicTransformerBlock(ch, cfg, tp, heads) for _ in range(depth)])
+        self.proj_out = proj()
 
     def _mask(self, ip_mask, B, Hh, Ww):
         """The identity mask at this block's resolution (B, Hh * Ww): under
@@ -342,18 +390,35 @@ class Transformer2D(nn.Module):
         m = _downsample_ip_mask(ip_mask, B, Hh * sp.size, Ww).reshape(B, Hh * sp.size, Ww)
         return sp.rows(m, 1).reshape(B, Hh * Ww)
 
-    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, fused_bundle=None, ip_mask=None, **train_kw):
+    def forward(self, x, text_ctx, id_ctx, ctx_kv=None, fused_bundles=None, ip_mask=None, fusion_u=None,
+                **train_kw):
+        """`ctx_kv`, `fused_bundles` and `fusion_u` hold one entry per
+        transformer block (or are None); returns (out, [v_ip_norm of each
+        block])."""
         B, C, Hh, Ww = x.shape
-        h = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(B, Hh * Ww, C)
-        h, vn = self.transformer_blocks[0](h, text_ctx, id_ctx, ctx_kv, fused_bundle,
-                                           self._mask(ip_mask, B, Hh, Ww), **train_kw)
+        if self.linear:
+            h = self.proj_in(self.norm(x).permute(0, 2, 3, 1).reshape(B, Hh * Ww, C))
+        else:
+            h = self.proj_in(self.norm(x)).permute(0, 2, 3, 1).reshape(B, Hh * Ww, C)
+        mask = self._mask(ip_mask, B, Hh, Ww)
+        norms = []
+        for i, blk in enumerate(self.transformer_blocks):
+            kw = train_kw if fusion_u is None else dict(train_kw, fusion_u=fusion_u[i])
+            h, vn = blk(h, text_ctx, id_ctx, None if ctx_kv is None else ctx_kv[i],
+                        None if fused_bundles is None else fused_bundles[i], mask, **kw)
+            norms.append(vn)
+        if self.linear:
+            return self.proj_out(h).reshape(B, Hh, Ww, C).permute(0, 3, 1, 2) + x, norms
         h = h.reshape(B, Hh, Ww, C).permute(0, 3, 1, 2)
-        return self.proj_out(h) + x, vn
+        return self.proj_out(h) + x, norms
 
 
 class UNet2DCondition(nn.Module):
     """forward(sample (B,H,W,4), timesteps (B,), text_ctx (B,St,cross),
-    id_ctx (B,K,cross)) -> (eps (B,H,W,4) f32, v_ip_norms (B, L*H*K)).
+    id_ctx (B,K,cross)) -> (eps (B,H,W,4) f32, v_ip_norms (B, L*H*K)),
+    L the transformer blocks in call order and H each one's heads. A UNet
+    with added conditioning also takes `added_cond` = (pooled text
+    embedding (B, addition_text_embed_dim), time ids (B, 6)).
 
     train=True takes `fusion_u` (L,), one uniform in [0, 1) per
     cross-attention layer in call order (the JAX package draws them as
@@ -368,11 +433,12 @@ class UNet2DCondition(nn.Module):
 
     def __init__(self, config: UNetConfig = UNetConfig(), tp: Optional[TPShard] = None):
         super().__init__()
-        if tp is not None and config.num_heads % tp.size:
-            raise ValueError(f"tensor_parallel={tp.size} must divide num_heads={config.num_heads}")
+        n = len(config.block_out_channels)
+        heads = {config.heads(i) for i in range(n)}
+        if tp is not None and any(h % tp.size for h in heads):
+            raise ValueError(f"tensor_parallel={tp.size} must divide every level's heads {sorted(heads)}")
         self.config = cfg = config
         ch = cfg.block_out_channels
-        n = len(ch)
         tdim = cfg.time_embed_dim
         G = cfg.norm_num_groups
         nf = not cfg.fast_norms
@@ -384,17 +450,25 @@ class UNet2DCondition(nn.Module):
         self.time_embedding = Group()
         self.time_embedding.linear_1 = nn.Linear(ch[0], tdim)
         self.time_embedding.linear_2 = nn.Linear(tdim, tdim)
+        self.add_embedding = None
+        if cfg.added_cond_dim:
+            self.add_embedding = Group()
+            self.add_embedding.linear_1 = nn.Linear(cfg.added_cond_dim, tdim)
+            self.add_embedding.linear_2 = nn.Linear(tdim, tdim)
+
+        def attn(level):
+            return Transformer2D(ch[level], cfg, tp, cfg.heads(level), cfg.depth(level))
 
         self.down_blocks = nn.ModuleList()
         in_c = ch[0]
         for i, c in enumerate(ch):
             blk = Group()
             blk.resnets = nn.ModuleList()
-            blk.attentions = nn.ModuleList() if i < n - 1 else None
+            blk.attentions = nn.ModuleList() if cfg.attends(i) else None
             for j in range(cfg.layers_per_block):
                 blk.resnets.append(res(in_c if j == 0 else c, c))
-                if i < n - 1:
-                    blk.attentions.append(Transformer2D(c, cfg, tp))
+                if blk.attentions is not None:
+                    blk.attentions.append(attn(i))
             if i < n - 1:
                 blk.downsamplers = nn.ModuleList([Sampler(Conv2d(c, c, 3, stride=2, padding=1))])
             in_c = c
@@ -402,7 +476,7 @@ class UNet2DCondition(nn.Module):
 
         self.mid_block = Group()
         self.mid_block.resnets = nn.ModuleList([res(ch[-1], ch[-1]), res(ch[-1], ch[-1])])
-        self.mid_block.attentions = nn.ModuleList([Transformer2D(ch[-1], cfg, tp)])
+        self.mid_block.attentions = nn.ModuleList([attn(n - 1)])
 
         rev = list(reversed(ch))
         self.up_blocks = nn.ModuleList()
@@ -410,13 +484,13 @@ class UNet2DCondition(nn.Module):
         for i, c in enumerate(rev):
             blk = Group()
             blk.resnets = nn.ModuleList()
-            blk.attentions = nn.ModuleList() if i > 0 else None
+            blk.attentions = nn.ModuleList() if cfg.attends(n - 1 - i) else None
             skip_last = rev[min(i + 1, n - 1)]
             for j in range(cfg.layers_per_block + 1):
                 skip_c = skip_last if j == cfg.layers_per_block else c
                 blk.resnets.append(res((prev if j == 0 else c) + skip_c, c))
-                if i > 0:
-                    blk.attentions.append(Transformer2D(c, cfg, tp))
+                if blk.attentions is not None:
+                    blk.attentions.append(attn(n - 1 - i))
             if i < n - 1:
                 blk.upsamplers = nn.ModuleList([Sampler(Conv2d(c, c, 3, padding=1))])
             prev = c
@@ -438,7 +512,7 @@ class UNet2DCondition(nn.Module):
         out = [a for blk in self.down_blocks if blk.attentions is not None for a in blk.attentions]
         out.append(self.mid_block.attentions[0])
         out += [a for blk in self.up_blocks if blk.attentions is not None for a in blk.attentions]
-        return [t.transformer_blocks[0] for t in out]
+        return [b for t in out for b in t.transformer_blocks]
 
     def forward(
         self,
@@ -452,6 +526,7 @@ class UNet2DCondition(nn.Module):
         fusion_u: Optional[torch.Tensor] = None,  # (L,) uniforms, train mode
         dropout_generator: Optional[torch.Generator] = None,
         ip_mask: Optional[torch.Tensor] = None,  # (B, Hm, Wm) identity mask in [0, 1]
+        added_cond: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,  # (B, pooled), (B, 6) time ids
     ) -> Tuple[torch.Tensor, torch.Tensor]:
         dtype = self.conv_in.weight.dtype
         B = sample.shape[0]
@@ -466,10 +541,10 @@ class UNet2DCondition(nn.Module):
         remat = self.config.remat and torch.is_grad_enabled()
 
         def cross(attn, x):
-            i = next(layer)
-            kw = dict(train=True, fusion_u=fusion_u[i], generator=dropout_generator) if train else {}
-            kv = None if ctx_kv is None else ctx_kv[i]
-            fb = None if fused_bundles is None else fused_bundles[i]
+            ids = [next(layer) for _ in attn.transformer_blocks]
+            kw = dict(train=True, fusion_u=[fusion_u[i] for i in ids], generator=dropout_generator) if train else {}
+            kv = None if ctx_kv is None else [ctx_kv[i] for i in ids]
+            fb = None if fused_bundles is None else [fused_bundles[i] for i in ids]
             if not remat:
                 return attn(x, text_ctx, id_ctx, kv, fb, ip_mask, **kw)
             return layers.remat(lambda x_, t_, d_: attn(x_, t_, d_, kv, fb, ip_mask, **kw),
@@ -480,6 +555,8 @@ class UNet2DCondition(nn.Module):
 
         temb = timestep_embedding(timesteps, self.config.block_out_channels[0]).to(dtype)
         temb = self.time_embedding.linear_2(F.silu(self.time_embedding.linear_1(temb)))
+        if self.add_embedding is not None:
+            temb = temb + self._added_embedding(added_cond, B, dtype)
         text_ctx = text_ctx.to(dtype)
         id_ctx = id_ctx.to(dtype)
 
@@ -491,7 +568,7 @@ class UNet2DCondition(nn.Module):
                 x = res(r, x)
                 if blk.attentions is not None:
                     x, vn = cross(blk.attentions[j], x)
-                    norms.append(vn)
+                    norms += vn
                 skips.append(x)
             if hasattr(blk, "downsamplers"):
                 x = blk.downsamplers[0].conv(x)
@@ -499,7 +576,7 @@ class UNet2DCondition(nn.Module):
 
         x = res(self.mid_block.resnets[0], x)
         x, vn = cross(self.mid_block.attentions[0], x)
-        norms.append(vn)
+        norms += vn
         x = res(self.mid_block.resnets[1], x)
 
         for blk in self.up_blocks:
@@ -507,10 +584,22 @@ class UNet2DCondition(nn.Module):
                 x = res(r, torch.cat([x, skips.pop()], dim=1))
                 if blk.attentions is not None:
                     x, vn = cross(blk.attentions[j], x)
-                    norms.append(vn)
+                    norms += vn
             if hasattr(blk, "upsamplers"):
                 x = blk.upsamplers[0].conv(F.interpolate(x, scale_factor=2.0, mode="nearest"))
 
         eps = self.conv_out(self.conv_norm_out(x, silu=True))
-        v_ip_norms = torch.stack(norms, dim=1).reshape(B, -1)
+        v_ip_norms = torch.cat([v.reshape(B, -1) for v in norms], dim=1)
         return eps.float().permute(0, 2, 3, 1), v_ip_norms
+
+    def _added_embedding(self, added_cond, B: int, dtype) -> torch.Tensor:
+        """add_embedding(concat(pooled text, sinusoidal embeddings of the six
+        time ids)), as diffusers' "text_time" computes it."""
+        if added_cond is None:
+            raise ValueError("this UNet takes added conditioning: added_cond=(pooled text (B, D), time ids (B, 6))")
+        pooled, time_ids = added_cond
+        if pooled.shape[0] != B or time_ids.shape[0] != B:
+            raise ValueError(f"added conditioning of {pooled.shape[0]} / {time_ids.shape[0]} rows for a batch of {B}")
+        t = timestep_embedding(time_ids.reshape(-1), self.config.addition_time_embed_dim).reshape(B, -1)
+        a = torch.cat([pooled.float(), t], dim=-1).to(dtype)
+        return self.add_embedding.linear_2(F.silu(self.add_embedding.linear_1(a)))

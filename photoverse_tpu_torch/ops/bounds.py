@@ -30,7 +30,8 @@ def bound_by(ops: float, nbytes: float, peak_flops: float = PEAK_FLOPS,
 def flash_fwd(B: int, Sq: int, Skv: int, H: int, d: int, with_lse: bool = False):
     """(operations, bytes) of softmax(q k^T) v on (B, S, H, d) bf16: the two
     products, 2 FLOPs a multiply-add; q, k, v in, out (and the f32 lse) out.
-    Serves flash_sdpa, flash_sdpa_stream and their lse forwards."""
+    Serves flash_sdpa (head dims 40, 64 and 80), flash_sdpa_stream and their
+    lse forwards."""
     ops = 4 * B * H * Sq * Skv * d
     nbytes = BF16 * B * H * d * (2 * Sq + 2 * Skv) + (F32 * B * H * Sq if with_lse else 0)
     return ops, nbytes

@@ -1,11 +1,11 @@
 """Flash attention: the no-grad forwards `flash_sdpa` (UNet self-attention,
-head dims 40 and 80) and `flash_sdpa_stream` (the VAE's single-head d=512
+head dims 40 and 80 of SD-1.5, 64 of SDXL) and `flash_sdpa_stream` (the VAE's single-head d=512
 attention), and their differentiable counterparts `flash_sdpa_diff` and
 `flash_sdpa_stream_diff`. Port of photoverse_tpu/ops/flash_sdpa.py.
 
 Kernels (all in csrc/, launched for CUDA tensors; every product wgmma,
 every tile fed by TMA):
-  - flash_sdpa (head dims 40 and 80): csrc/flash_fwd_wgmma.cu;
+  - flash_sdpa (head dims 40, 64 and 80): csrc/flash_fwd_wgmma.cu;
     flash_sdpa_stream (d=512): csrc/flash_fwd_stream.cu;
   - the forward of both autograd Functions: the same two kernels with
     their log-sum-exp output (`flash_fwd_lse`);
@@ -43,9 +43,9 @@ __all__ = [
     "BWD_HEAD_DIMS",
 ]
 
-# head dims the CUDA kernels are built for: csrc/flash_fwd_wgmma.cu (40, 80)
-# and csrc/flash_fwd_stream.cu (512); csrc/flash_bwd.cu
-KERNEL_HEAD_DIMS = (40, 80, 512)
+# head dims the CUDA kernels are built for: csrc/flash_fwd_wgmma.cu (40, 64,
+# 80) and csrc/flash_fwd_stream.cu (512); csrc/flash_bwd.cu
+KERNEL_HEAD_DIMS = (40, 64, 80, 512)
 BWD_HEAD_DIMS = (40, 80)
 
 
@@ -187,7 +187,7 @@ def _launch(q, k, v, with_lse: bool):
 
 
 def flash_sdpa(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
-    """Self-attention without an (S, S) tensor (UNet head dims 40 and 80);
+    """Self-attention without an (S, S) tensor (UNet head dims 40, 64 and 80);
     returns (B, Sq, H, d). The kernel keeps scores and softmax in f32 and
     takes the probabilities to bf16 for the p v product."""
     _check(q, k, v)

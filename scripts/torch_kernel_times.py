@@ -2,7 +2,7 @@
 
     python3 scripts/torch_kernel_times.py [flash] [bwd] [stream] [fused] [--quick] [--earlier DIR]
 
-For `flash_sdpa` (head dims 40 and 80): error, CUDA-event, device and host
+For `flash_sdpa` (head dims 40, 64 and 80): error, CUDA-event, device and host
 time at small, ragged and main-path shapes, beside one
 `scaled_dot_product_attention` call on the same inputs. `bwd`: the same
 for `flash_bwd` (errors of dq, dk, dv over their limits, the library time
@@ -88,11 +88,14 @@ def child_flash(quick: bool):
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev).manual_seed(0)
-    small = [(1, 100, 100, 2, 40), (2, 64, 200, 3, 80), (1, 1000, 4000, 2, 40), (4, 300, 77, 2, 80)]
+    small = [(1, 100, 100, 2, 40), (2, 64, 200, 3, 80), (1, 1000, 4000, 2, 40), (4, 300, 77, 2, 80),
+             (1, 100, 100, 2, 64)]
+    # SD-1.5's head dims at scale 0.3, SDXL's d=64 at UNet batch 8 at scale 0.3, then unit scale
     main = [(2, 4096, 4096, 8, 40), (2, 1024, 1024, 8, 80), (2, 1024, 4096, 8, 40),
+            (8, 4096, 4096, 10, 64), (8, 1024, 1024, 20, 64),
             (4, 4096, 4096, 8, 40), (4, 1024, 1024, 8, 80)]
     for B, Sq, Skv, H, d in small + main:
-        scale = 0.3 if (B, Sq, Skv, H, d) not in main[3:] else 1.0
+        scale = 0.3 if (B, Sq, Skv, H, d) not in main[5:] else 1.0
         q = (scale * torch.randn(B, Sq, H, d, generator=gen, device=dev)).bfloat16()
         k = (scale * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()
         v = (scale * torch.randn(B, Skv, H, d, generator=gen, device=dev)).bfloat16()

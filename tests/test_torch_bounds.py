@@ -14,6 +14,7 @@ from photoverse_tpu_torch.utils.face_similarity import FaceSimilarity
 from photoverse_tpu_torch.utils.mtcnn import MTCNN
 from photoverse_tpu_torch.ops import bounds
 from scripts.torch_make_random_checkpoint import make_checkpoint
+from tests.torch_threads import worker_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("fn,shape,gflop,ms", [
@@ -25,6 +26,9 @@ from scripts.torch_make_random_checkpoint import make_checkpoint
     (bounds.flash_bwd, (4, 4096, 8, 40), 214.7, 0.2171),
     (bounds.flash_fwd, (4, 4096, 4096, 8, 40), 85.9, 0.0869),
     (bounds.flash_bwd, (4, 1024, 8, 80), 26.84, 0.0271),
+    # SDXL's self-attention at UNet batch 8 (4 rows under guidance), d = 64
+    (bounds.flash_fwd, (8, 4096, 4096, 10, 64), 343.6, 0.3474),
+    (bounds.flash_fwd, (8, 1024, 1024, 20, 64), 42.95, 0.0434),
 ])
 def test_bounds_at_the_main_path_shapes(fn, shape, gflop, ms):
     ops, nbytes = fn(*shape)

@@ -23,6 +23,7 @@ from photoverse_tpu_torch.cli import create_dataset_json as tjson
 from photoverse_tpu_torch.cli import prepare_celebhqmasks as tprep
 from photoverse_tpu_torch.data import celebahq as tc
 from scripts.torch_make_random_checkpoint import ARCHIVE_IMAGES, write_celebahq_archive
+from tests.torch_threads import worker_threads  # noqa: F401
 
 
 def _tree(root):

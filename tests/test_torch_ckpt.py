@@ -31,6 +31,7 @@ from photoverse_tpu_torch.convert import to_jax
 from photoverse_tpu_torch.engine import training as ttr
 from tests.test_torch_train import _lora_params
 from tests.torch_tiny import port_models
+from tests.torch_threads import worker_threads  # noqa: F401
 
 LORA_CFG = {"r": 4, "lora_alpha": 1.0, "lora_dropout": 0.0, "bias": "none",
             "target_modules": ["attn2.to_k", "attn2.to_v", "attn2.to_q"]}

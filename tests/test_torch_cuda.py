@@ -64,7 +64,7 @@ def test_flash_kernel_matches_plain(gen, B, Sq, Skv, H, d):
     assert _flash_close(got, want)
 
 
-@pytest.mark.parametrize("d", [40, 80])
+@pytest.mark.parametrize("d", [40, 64, 80])
 @pytest.mark.parametrize("B,Sq,Skv,H", [
     (1, 1000, 4000, 2),   # neither length a multiple of the 64/128-row and 64-key tiles
     (4, 130, 77, 3),      # keys shorter than one tile, batch 4
@@ -84,6 +84,69 @@ def test_wgmma_flash_kernel_ragged_lengths(gen, d, B, Sq, Skv, H):
         want_lse = fs.flash_fwd_lse_plain(q.float(), k.float(), v.float())[1]
         assert torch.equal(out, got)
         assert (lse - want_lse).abs().max().item() <= 2**-10
+
+
+def _device_ms(fn, iters=20):
+    """CUDA-event milliseconds a call of `fn`, after a warm-up."""
+    fn()
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+@pytest.mark.parametrize("B,S,H", [(8, 4096, 10), (8, 1024, 20)])
+def test_flash_kernel_at_sdxl_shapes_against_plain_and_the_library(gen, B, S, H):
+    # SDXL's self-attention at UNet batch 8 (4 rows under guidance), d = 64:
+    # unit-scale inputs, against the plain f32 path (the 2^-6 rule and
+    # about 1e-4 absolute), and no slower than 1.1 x one
+    # scaled_dot_product_attention call on the same inputs
+    q, k, v = (_r(gen, B, S, H, 64) for _ in range(3))
+    with trace.counting("launch.") as launches:
+        got = fs.flash_sdpa(q, k, v)
+    want = fs.flash_sdpa_plain(q.float(), k.float(), v.float())
+    assert launches.get("flash_sdpa") == 1 and _flash_close(got, want)
+    err = (got.float() - want).abs().max().item()
+    qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+    ours = _device_ms(lambda: fs.flash_sdpa(q, k, v))
+    lib = _device_ms(lambda: torch.nn.functional.scaled_dot_product_attention(qt, kt, vt))
+    print(f"flash d=64 {(B, S, H)}: max err {err:.3g}, {ours:.4f} ms against the library's {lib:.4f} ms")
+    assert ours <= 1.1 * lib
+
+
+def test_sdxl_request_counts_its_d64_flash_launches(gen):
+    # a tiny SDXL bundle served on the card with the flash route at a low
+    # threshold: every self-attention of every UNet evaluation is one
+    # `launch.flash_sdpa` (head dim 8 is not a kernel width, so a bundle at
+    # head dim 64: 64 channels, one head)
+    import importlib.util
+    import os
+
+    import numpy as np
+
+    from photoverse_tpu_torch.core.schedulers import DPMSolverMultistep
+    from photoverse_tpu_torch.engine.inference import run_inference
+
+    # by path: the card's machine has another package named `tests`
+    spec = importlib.util.spec_from_file_location(
+        "sdxl_tiny", os.path.join(os.path.dirname(os.path.abspath(__file__)), "sdxl_tiny.py"))
+    sdxl_tiny = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sdxl_tiny)
+
+    models, _ = sdxl_tiny.bundle(device="cuda", dtype=torch.bfloat16, use_flash_attention=True, flash_min_seq=16,
+                                 level_heads=(1, 1, 1), num_heads=1)
+    steps = 2
+    solver = DPMSolverMultistep.create(models.schedule, steps)
+    with trace.counting("launch.") as launches:
+        out = run_inference(models, solver, sdxl_tiny.example(2), guidance_scale=5.0, latent_size=sdxl_tiny.LATENT,
+                            initial_noise=np.zeros((2, sdxl_tiny.LATENT, sdxl_tiny.LATENT, 4), np.float32))
+        torch.cuda.synchronize()
+    # 11 blocks, each at S = 64 or 16 tokens >= 16; one launch a block a step
+    assert launches.get("flash_sdpa") == 11 * steps and torch.isfinite(out).all()
 
 
 def test_flash_kernel_refuses_layouts_tma_cannot_read(gen):
@@ -147,7 +210,7 @@ def test_kernel_rejects_other_dtypes_and_head_dims(gen):
     q = torch.zeros(1, 8, 1, 40, device="cuda", dtype=torch.float16)
     with pytest.raises(TypeError):
         fs.flash_sdpa(q, q, q)
-    q = torch.zeros(1, 8, 1, 64, device="cuda", dtype=torch.bfloat16)
+    q = torch.zeros(1, 8, 1, 48, device="cuda", dtype=torch.bfloat16)
     with pytest.raises(ValueError, match="head dims"):
         fs.flash_sdpa(q, q, q)
     q = torch.zeros(1, 8, 1, 41, device="cuda", dtype=torch.bfloat16)[..., 1:]  # 2-byte offset

@@ -25,6 +25,7 @@ from photoverse_tpu_torch.data import preprocessing as tpre
 from photoverse_tpu_torch.data import prompts as tprompts
 from photoverse_tpu_torch.data.tokenizer import CLIPTokenizer as TorchTokenizer
 from tests.test_data import _tiny_tokenizer
+from tests.torch_threads import worker_threads  # noqa: F401
 
 
 def _same_batch(a, b):

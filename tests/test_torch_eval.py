@@ -32,6 +32,7 @@ from photoverse_tpu_torch.utils import face_similarity as tfs
 from photoverse_tpu_torch.utils import mtcnn as tm
 from tests.test_face_models import _make_arcface_sd
 from tests.test_utils import _mtcnn_state_dicts
+from tests.torch_threads import worker_threads  # noqa: F401
 
 NETS = ("pnet", "rnet", "onet")
 FACE_BIAS = {"pnet": "conv4_1.bias", "rnet": "dense5_1.bias", "onet": "dense6_1.bias"}

@@ -22,6 +22,7 @@ from photoverse_tpu_torch.convert.from_jax import facenet_state_dict, load_jax_f
 from photoverse_tpu_torch.models.face_loss import FaceLoss, face_preprocess, load_face_loss
 from photoverse_tpu_torch.models.facenet import InceptionResnetV1, init_facenet
 from tests.test_facenet import _make_sd
+from tests.torch_threads import worker_threads  # noqa: F401
 
 
 @pytest.fixture(scope="module")

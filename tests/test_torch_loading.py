@@ -30,6 +30,7 @@ from photoverse_tpu_torch.utils import image as timage
 from tests.test_cli_e2e import _make_checkpoint
 from tests.test_data import _tiny_tokenizer
 from tests.torch_tiny import port_models
+from tests.torch_threads import worker_threads  # noqa: F401
 
 KW = dict(extra_num_tokens=4, image_encoder_layers_idx=(1, 2, 3, 4))
 LORA_CFG = {"r": 2, "lora_alpha": 1.0, "lora_dropout": 0.0, "bias": "none",

@@ -17,6 +17,7 @@ from photoverse_tpu_torch.convert import manifests as tm
 from photoverse_tpu_torch.models.clip import CLIPTextConfig, CLIPTextEncoder, CLIPVisionConfig, CLIPVisionEncoder
 from photoverse_tpu_torch.models.unet import UNet2DCondition, UNetConfig
 from photoverse_tpu_torch.models.vae import AutoencoderKL, VAEConfig
+from tests.torch_threads import worker_threads  # noqa: F401
 
 # the meta module's load_state_dict warns that copying into it is a no-op
 pytestmark = pytest.mark.filterwarnings("ignore:for .*copying from a non-meta parameter")

@@ -25,6 +25,7 @@ from photoverse_tpu_torch.models.assembly import build_models, init_params
 from photoverse_tpu_torch.ops.group_norm import group_norm_nhwc
 from tests.tiny_models import tiny_bundle
 from tests.torch_tiny import port_models
+from tests.torch_threads import worker_threads  # noqa: F401
 
 RTOL, ATOL = 5e-4, 5e-5
 

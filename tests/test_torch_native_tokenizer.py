@@ -16,6 +16,7 @@ from photoverse_tpu_torch.data import native_tokenizer as nt
 from photoverse_tpu_torch.data.tokenizer import CLIPTokenizer
 from tests.test_data import _tiny_tokenizer
 from tests.test_native_tokenizer import PROMPTS
+from tests.torch_threads import worker_threads  # noqa: F401
 
 NON_ASCII = ["Ünified photo", "café photo of the *", "photo of ß and ǅ", "日本 photo", "naïve  PHOTO"]
 MORE = ["photo!!'s of", "photo!<the", "photo ''of", "photo <of", "photo &amp; photo", "a " * 20]

@@ -23,6 +23,7 @@ from photoverse_tpu_torch.models.layers import GroupNorm
 from photoverse_tpu_torch.ops.group_norm import group_norm_nhwc
 from photoverse_tpu_torch.ops.injection import inject_concept_embeddings as tinject
 from photoverse_tpu_torch.utils import trace
+from tests.torch_threads import worker_threads  # noqa: F401
 
 T = torch.from_numpy
 
@@ -345,7 +346,7 @@ def test_flash_bwd_with_bf16_p_and_ds_stays_within_the_kernel_limit(B, S, H, d):
 
 
 def test_wgmma_kernel_serves_the_unet_head_dims_by_default():
-    assert tflash.KERNEL_HEAD_DIMS == (40, 80, 512) and tflash.BWD_HEAD_DIMS == (40, 80)
+    assert tflash.KERNEL_HEAD_DIMS == (40, 64, 80, 512) and tflash.BWD_HEAD_DIMS == (40, 80)
     # every forward goes one route: the same checks, one C signature
     assert _build.SIGNATURES["pv_flash_fwd_stream"] == _build.SIGNATURES["pv_flash_fwd_wgmma"]
     # one configuration of each wgmma kernel is built: the C entry points

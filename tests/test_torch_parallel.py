@@ -27,6 +27,7 @@ from photoverse_tpu_torch.parallel.sp import Spatial, validate_sp
 from photoverse_tpu_torch.parallel.tp import shard_state_dict, unet_tp_dim, validate_tp
 from tests.tiny_models import LATENT, tiny_bundle
 from tests.torch_tiny import port_models, run_ranks
+from tests.torch_threads import worker_threads  # noqa: F401
 
 FLASH_ATOL = 1e-5  # f32, the JAX wrapper's own bound (tests/test_sharded_flash.py)
 

@@ -25,6 +25,7 @@ from photoverse_tpu_torch.cli import generate as tgen
 from photoverse_tpu_torch.cli.serve import PhotoVerseService, build_parser
 from tests.test_cli_e2e import _make_checkpoint
 from tests.torch_tiny import RANK_TIMEOUT_S, Processes, start_ranks
+from tests.torch_threads import worker_threads  # noqa: F401
 
 GEN_MODES = ("data", "tensor", "spatial")
 SERVE_MODES = ("tensor", "spatial")

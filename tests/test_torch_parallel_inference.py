@@ -21,6 +21,7 @@ from photoverse_tpu_torch.core.schedulers import make_solver
 from photoverse_tpu_torch.engine.inference import run_inference
 from tests.tiny_models import LATENT, RES, tiny_batch, tiny_bundle
 from tests.torch_tiny import port_configs, port_models, run_ranks
+from tests.torch_threads import worker_threads  # noqa: F401
 
 STEPS = 4
 GUIDANCE = 2.0

@@ -63,6 +63,7 @@ from photoverse_tpu_torch.parallel.training import MODELS
 from tests.test_torch_train import _jax_draws, _lora_params, _port_grads_as_leaves, _recorder
 from tests.tiny_models import LATENT, tiny_batch, tiny_bundle
 from tests.torch_tiny import RANK_TIMEOUT_S, Processes, _torch_tree, port_configs, port_models, start_ranks
+from tests.torch_threads import worker_threads  # noqa: F401
 
 CFG = dict(max_train_steps=5, lr_warmup_steps=1, learning_rate=1e-3)
 B = 4

@@ -38,6 +38,7 @@ from photoverse_tpu_torch.engine import training as ttr
 from photoverse_tpu_torch.models.assembly import load_models
 from tests.test_torch_train_cli import _tiny_model_dir
 from tests.torch_tiny import RANK_TIMEOUT_S, Processes, start_ranks
+from tests.torch_threads import worker_threads  # noqa: F401
 
 CFG_FLAGS = ["--resolution", "32", "--train_batch_size", "2", "--use_lora", "--lora_rank", "2",
              "--image_encoder_layers_idx", "1", "2", "3", "4", "--dataloader_num_workers", "1", "--seed", "0",

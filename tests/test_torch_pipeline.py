@@ -20,6 +20,7 @@ from photoverse_tpu_torch.engine.inference import run_inference
 from photoverse_tpu_torch.utils import trace
 from tests.tiny_models import LATENT, tiny_batch, tiny_bundle
 from tests.torch_tiny import port_models
+from tests.torch_threads import worker_threads  # noqa: F401
 
 STEPS = 4
 ATOL = 1e-3

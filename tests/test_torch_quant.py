@@ -29,6 +29,7 @@ from photoverse_tpu_torch.models.unet import UNetConfig
 from photoverse_tpu_torch.models.vae import VAEConfig
 from photoverse_tpu_torch.ops import quant
 from tests.test_cli_e2e import _make_checkpoint
+from tests.torch_threads import worker_threads  # noqa: F401
 
 TCFG = dict(vocab_size=64, hidden_size=16, num_layers=2, num_heads=2, intermediate_size=32,
             max_position_embeddings=12)

@@ -17,6 +17,7 @@ from photoverse_tpu.convert import real_goldens as jg
 from photoverse_tpu_torch.convert import real_goldens as tg
 from scripts.torch_make_random_checkpoint import make_checkpoint
 from tests.test_real_weight_goldens import FIXTURE, TOLERANCES, _gate
+from tests.torch_threads import worker_threads  # noqa: F401
 
 # both sides compute in f32 from the same weights; the orders of their
 # reductions differ (XLA against ATen), about 1e-6 of max |x| on this

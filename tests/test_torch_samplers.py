@@ -31,6 +31,7 @@ from photoverse_tpu_torch.engine import inference as tinf
 from photoverse_tpu_torch.models.unet import _cubic_resize_matrix, _downsample_ip_mask
 from tests.tiny_models import LATENT, RES, tiny_batch, tiny_bundle
 from tests.torch_tiny import port_models
+from tests.torch_threads import worker_threads  # noqa: F401
 
 FIXTURES = os.path.join(os.path.dirname(__file__), "fixtures")
 TABLES = ("timesteps", "sigmas", "a", "b", "c", "eps_coef", "x0_scale", "noise_sigma", "corr_ci",

@@ -7,6 +7,7 @@ import torch
 
 from photoverse_tpu.core import schedulers as jsched
 from photoverse_tpu_torch.core import schedulers as tsched
+from tests.torch_threads import worker_threads  # noqa: F401
 
 
 @pytest.mark.parametrize("steps", [10, 25, 50])

@@ -31,6 +31,7 @@ from photoverse_tpu_torch.core.schedulers import make_solver
 from photoverse_tpu_torch.engine.inference import run_inference
 from photoverse_tpu_torch.data.tokenizer import CLIPTokenizer
 from tests.test_cli_e2e import _make_checkpoint
+from tests.torch_threads import worker_threads  # noqa: F401
 
 SAME = 2  # uint8 steps between a coalesced request and its solo run
 

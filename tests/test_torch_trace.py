@@ -19,6 +19,7 @@ from photoverse_tpu_torch.engine.inference import run_inference
 from photoverse_tpu_torch.utils import trace
 from tests.tiny_models import LATENT, SEQ, tiny_batch, tiny_bundle
 from tests.torch_tiny import port_models
+from tests.torch_threads import worker_threads  # noqa: F401
 
 STEPS = 3
 
@@ -226,6 +227,39 @@ def test_sequential_service_records_request_dispatch_and_device_wait(models, rec
     assert {"request", "dispatch", "device_wait", "conditioning", "denoise", "decode"} <= set(by)
     assert by["dispatch"]["parent"] == by["device_wait"]["parent"] == by["request"]["id"]
     assert by["conditioning"]["parent"] == by["dispatch"]["id"]
+
+
+def test_sdxl_request_records_both_text_encoder_spans(recorder):
+    # a tiny SDXL bundle (tests/sdxl_tiny.py) behind the sequential service,
+    # its flash route on: one `text_encoder` span per encoder inside
+    # `conditioning`, each with its encoder and rows. The d=64 launches'
+    # `launch.flash_sdpa` count needs the card (tests/test_torch_cuda.py:
+    # test_sdxl_request_counts_its_d64_flash_launches); the CPU's plain
+    # path launches nothing and counts nothing
+    import argparse
+
+    from photoverse_tpu_torch.cli.serve import PhotoVerseService
+    from tests import sdxl_tiny
+
+    n = torch.get_num_threads()
+    torch.set_num_threads(min(n, 2))
+    try:
+        sdxl, _ = sdxl_tiny.bundle(use_flash_attention=True, flash_min_seq=16)
+        args = argparse.Namespace(
+            sharding="none", model_path="", resolution=sdxl_tiny.RES, cpu=True, dynamic_batching=False,
+            max_batch=2, batch_wait_ms=25, max_queue=8, default_steps=2, native_tokenizer=False, fast=False,
+            int8_conditioning=False, bf16_params=False, extra_num_tokens=0, encoder_layers_idx=[])
+        svc = PhotoVerseService(args, models=(None, sdxl))
+        with trace.counting("launch.") as launches:
+            svc.submit(sdxl_tiny.example(2), 2, 3, (2, 5.0, "dpm"))
+    finally:
+        torch.set_num_threads(n)
+    spans = trace.take()["spans"]
+    by = {s["id"]: s for s in spans}
+    enc = [s for s in spans if s["name"] == "text_encoder"]
+    assert [s["attrs"] for s in enc] == [{"encoder": 1, "rows": 2}, {"encoder": 2, "rows": 2}]
+    assert all(by[s["parent"]]["name"] == "conditioning" for s in enc)
+    assert enc[0]["end"] <= enc[1]["start"] and launches == {}
 
 
 @pytest.mark.parametrize("face", [False, True])

@@ -43,6 +43,7 @@ from photoverse_tpu_torch.models.arcface import ArcFaceConfig, ArcFaceResNet18, 
 from photoverse_tpu_torch.models.face_loss import FaceLoss, face_preprocess, make_face_loss_fn
 from tests.tiny_models import LATENT, tiny_batch, tiny_bundle
 from tests.torch_tiny import port_models
+from tests.torch_threads import worker_threads  # noqa: F401
 
 T = torch.from_numpy
 FACE_STEPS = 3

@@ -38,6 +38,7 @@ from photoverse_tpu_torch.models.unet import UNetConfig
 from photoverse_tpu_torch.models.vae import VAEConfig
 from scripts.torch_make_random_checkpoint import write_model_dir
 from tests.test_data import _tiny_tokenizer
+from tests.torch_threads import worker_threads  # noqa: F401
 
 # the scalars the JAX CLI logs every optimizer step
 # (photoverse_tpu/cli/train.py:767-776), then "loss_face" with a face loss

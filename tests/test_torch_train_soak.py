@@ -13,6 +13,7 @@ import numpy as np
 import pytest
 
 from scripts import torch_train_soak as soak
+from tests.torch_threads import worker_threads  # noqa: F401
 
 
 def _write(path, rows, tail=""):
