@@ -154,6 +154,10 @@ FUSED_ATOL = 1 / 32
 # rounding to bf16, as its plain version; weights 1 +- 0.1 keep |out| < 8,
 # where a bf16 ulp is <= 2^-5, so 1/32 is one ulp
 GN_ATOL = 1 / 32
+# dual-context cross-attention: the probabilities and the output are each
+# rounded to bf16 once (relative error <= 2^-8), so the output is within
+# 2^-8 (max |v| + max |v_ip| + max |out|) of the f32 plain version
+DUAL_RTOL = 2**-8
 # pipeline: max abs pixel difference (in [-1, 1]) between the kernel run and
 # the same run with each kernel swapped for its plain version. Guidance 1:
 # the JAX package's envelope for flash/fused on vs off on random weights
@@ -344,6 +348,7 @@ def phase_kernels(source_tpu: dict):
     import torch.nn.functional as nnf
 
     from photoverse_tpu_torch.ops import bounds
+    from photoverse_tpu_torch.ops import dual_cross_attn as dca
     from photoverse_tpu_torch.ops import flash_sdpa as fs
     from photoverse_tpu_torch.ops import fused_block as fb
     from photoverse_tpu_torch.ops import group_norm as gn
@@ -537,6 +542,40 @@ def phase_kernels(source_tpu: dict):
                   f"(tol {GN_ATOL:.6g})")
         del x, got, want, xn
 
+    # the unfused blocks' dual-context cross-attention, 77 text rows and the
+    # serving path's one identity row, unit-scale inputs: SDXL's two levels
+    # at UNet batch 8, SD-1.5's 32^2, 16^2 and 8^2 levels at batch 16 and its
+    # 64^2 level at the recipe's batch 8 (training's no-grad face prefix).
+    # Against the plain version in f32 (`plain_ms`) at DUAL_RTOL, beside the
+    # einsum route's own error; the "library call" is the einsum route on the
+    # bf16 inputs, what the UNet ran before the kernel
+    for B, S, H, d in ((8, 4096, 10, 64), (8, 1024, 20, 64), (16, 1024, 8, 80), (16, 256, 8, 160), (16, 64, 8, 160),
+                       (8, 4096, 8, 40)):
+        St, K = 77, 1
+        ts = tuple(torch.randn(B, n, H, d, generator=gen, device=dev).bfloat16() for n in (S, St, St, K, K))
+        f32 = tuple(t.float() for t in ts)
+        with trace.counting("launch.") as launched:
+            got = dca.dual_cross_attention(*ts)
+        want = dca.dual_cross_attention_plain(*f32)
+        err = (got.float() - want).abs().max().item()
+        tol = DUAL_RTOL * sum(t.abs().max().item() for t in (f32[2], f32[4], want))
+        route_err = (dca.dual_cross_attention_plain(*ts).float() - want).abs().max().item()
+        log(f"  dual_cross_attn {[B, S, H, d, St, K]}: the einsum route's max_abs_err {route_err:.6g}")
+        plain_ms = _time_ms(lambda: dca.dual_cross_attention_plain(*f32), 5)
+        record("dual_cross_attn", "cuda", "photoverse_tpu_torch/csrc/dual_cross_attn.cu",
+               source_tpu["dual_cross_attn"], err, tol, lambda: dca.dual_cross_attention(*ts), 20, plain_ms,
+               [B, S, H, d, St, K], bounds.flash_fwd(B, S, St + K, H, d), lambda: dca.dual_cross_attention_plain(*ts))
+        same = torch.equal(got, dca.dual_cross_attention(*ts))
+        check(launched == {"dual_cross_attn": 1} and same,
+              f"dual_cross_attn {[B, S, H, d, St, K]}: launches {launched}, repeat bit-identical {same}")
+        if (S, H) == (4096, 10):
+            e = (dca.dual_cross_attention(*ts[:4], torch.zeros_like(ts[4])).float() - want).abs().max().item()
+            fault(e > tol, f"dual_cross_attn identity values dropped: err {e:.6g} (tol {tol:.6g})")
+            e = (dca.dual_cross_attention(ts[0], ts[1][:, :76], ts[2][:, :76], *ts[3:]).float()
+                 - want).abs().max().item()
+            fault(e > tol, f"dual_cross_attn last text row dropped: err {e:.6g} (tol {tol:.6g})")
+        del ts, f32, got, want
+
     # the training kernels on unit-scale inputs: out, dq, dk and dv held at
     # FLASH_RTOL of their own max |.|, lse at LSE_ATOL
     def rel_err(got, want):
@@ -653,6 +692,7 @@ def plain_kernels():
     the call sites (the comparison run; the wrappers themselves never fall
     back)."""
     from photoverse_tpu_torch.models import layers, unet, vae
+    from photoverse_tpu_torch.ops import dual_cross_attn as dca
     from photoverse_tpu_torch.ops import flash_sdpa as fs
     from photoverse_tpu_torch.ops import fused_block as fb
     from photoverse_tpu_torch.ops import group_norm as gn
@@ -661,6 +701,7 @@ def plain_kernels():
             mock.patch.object(unet, "flash_sdpa", fs.flash_sdpa_plain), \
             mock.patch.object(unet, "flash_sdpa_diff", fs.flash_sdpa_plain), \
             mock.patch.object(unet, "fused_cross_ff", fb.reference_cross_ff), \
+            mock.patch.object(unet, "dual_cross_attention", dca.dual_cross_attention_plain), \
             mock.patch.object(vae, "flash_sdpa_stream", fs.flash_sdpa_plain), \
             mock.patch.object(vae, "flash_sdpa_stream_diff", fs.flash_sdpa_plain):
         yield
@@ -755,12 +796,16 @@ UNET_NORMS, DECODER_NORMS, ENCODER_NORMS = 61, 30, 22
 def _serving_counts(evals: int, fused: bool = True, stream: int = 1) -> dict:
     """Launches of one generation at SD-1.5 width, 512px: per UNet
     evaluation 10 flash self-attention layers (the 64^2 and 32^2 levels),
-    5 fused block tails (C=320) and its GroupNorms, and the VAE's mid-block
-    attention and GroupNorms (`stream` 2: an encode too)."""
+    5 fused block tails (C=320), the other 11 blocks' dual-context
+    cross-attention and its GroupNorms, and the VAE's mid-block attention
+    and GroupNorms (`stream` 2: an encode too). `fused` False: an identity
+    mask, which keeps every block's unfused tail and the cross-attention's
+    einsums."""
     want = {"flash_sdpa": 10 * evals, "flash_sdpa_stream": stream,
             "group_norm_nhwc": UNET_NORMS * evals + DECODER_NORMS + ENCODER_NORMS * (stream - 1)}
     if fused:
         want["fused_cross_ff"] = 5 * evals
+        want["dual_cross_attn"] = 11 * evals
     return want
 
 
@@ -1134,14 +1179,16 @@ def _train_counts(n_flash: int, face_steps: int, face: bool, remat: bool) -> dic
     Remat recomputes every block that holds a flash layer in the backward,
     so each lse forward runs twice; the backward kernels do not. The
     channels-last GroupNorm runs in the no-grad encodes and the no-grad
-    steps only."""
+    steps only, and so does the dual-context cross-attention kernel, in all
+    16 blocks."""
     r = 2 if remat else 1
     if not face:
         return {"flash_sdpa_stream": 1, "flash_sdpa_fwd_lse": r * n_flash, "flash_bwd": n_flash - 1,
                 "group_norm_nhwc": ENCODER_NORMS}
     return {"flash_sdpa_stream": 2, "flash_sdpa": n_flash * (face_steps - 1), "flash_sdpa_fwd_lse": 2 * r * n_flash,
             "flash_bwd": 2 * (n_flash - 1), "flash_stream_fwd_lse": r,
-            "group_norm_nhwc": 2 * ENCODER_NORMS + UNET_NORMS * (face_steps - 1)}
+            "group_norm_nhwc": 2 * ENCODER_NORMS + UNET_NORMS * (face_steps - 1),
+            "dual_cross_attn": 16 * (face_steps - 1)}
 
 
 def phase_train():
@@ -2414,8 +2461,10 @@ def phase_parallel(smi: str, root: str, data: str):
         for m in PARALLEL_MODES:
             got = [_u8(os.path.join(tmp, m, f"generated_image{i}.png")) for i in range(2)]
             diff = _u8_diff(got, one)
-            want = {"data": _serving_counts(10), "spatial": {"flash_sdpa": 100},  # split norms: no kernel
-                    "tensor": {"flash_sdpa": 100, "group_norm_nhwc": UNET_NORMS * 10 + DECODER_NORMS}}[m]
+            # no fused tails under tensor and spatial: the cross-attention kernel in all 16 blocks
+            want = {"data": _serving_counts(10), "spatial": {"flash_sdpa": 100, "dual_cross_attn": 160},  # split norms: no kernel
+                    "tensor": {"flash_sdpa": 100, "dual_cross_attn": 160,
+                               "group_norm_nhwc": UNET_NORMS * 10 + DECODER_NORMS}}[m]
             counts = [rk[m]["counts"] for rk in ranks]
             secs = [rk[m]["seconds"] for rk in ranks]
             check(within(diff) and all(c == want for c in counts),
@@ -2878,8 +2927,9 @@ TPU_KERNELS = {
     "flash_bwd": "photoverse_tpu/ops/flash_sdpa.py:345",
     "flash_stream_fwd_lse": "photoverse_tpu/ops/flash_sdpa.py:500",
     "group_norm_nhwc": "none (the JAX package leaves GroupNorm to XLA)",
+    "dual_cross_attn": "none (the JAX package leaves the cross-attention's einsums to XLA)",
 }
-SERVING_KERNELS = ("flash_sdpa", "flash_sdpa_stream", "fused_cross_ff", "group_norm_nhwc")
+SERVING_KERNELS = ("flash_sdpa", "flash_sdpa_stream", "fused_cross_ff", "group_norm_nhwc", "dual_cross_attn")
 
 
 def main() -> int:

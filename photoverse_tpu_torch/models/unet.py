@@ -27,7 +27,11 @@ Kernel routes (the build flags of the serving configuration):
     SD-1.5);
   - fused_blocks: a layer given a fused bundle runs its LN2 + dual-context
     cross-attention + LN3 + GEGLU tail through ops.fused_block; eval only,
-    so the bundles are ignored in train mode or when grad is enabled.
+    so the bundles are ignored in train mode or when grad is enabled;
+  - with no flag: every other block's cross-attention takes
+    ops.dual_cross_attn's kernel for a bf16 input on the card under
+    torch.no_grad() in eval fusion without a mask, at the sizes the kernel
+    serves (`DualCrossAttention`).
 
 Train mode (`forward(..., train=True, fusion_u=..., dropout_generator=...)`):
 stochastic fusion per cross-attention layer from the caller's uniforms
@@ -76,11 +80,13 @@ from photoverse_tpu_torch.models import layers
 from photoverse_tpu_torch.models.layers import (
     Conv2d, GroupNorm, Group, LayerNorm, Linear, ResnetBlock, Sampler, proj,
 )
-from photoverse_tpu_torch.ops.attention import dual_context_attention, sdpa
+from photoverse_tpu_torch.ops.attention import dual_context_attention, identity_value_norm, sdpa
+from photoverse_tpu_torch.ops.dual_cross_attn import dual_cross_attention, takes_kernel
 from photoverse_tpu_torch.ops.flash_sdpa import flash_sdpa, flash_sdpa_diff
 from photoverse_tpu_torch.ops.fused_block import fused_cross_ff
 from photoverse_tpu_torch.parallel.mesh import copy_to_model
 from photoverse_tpu_torch.parallel.tp import RowParallelLinear, TPShard
+from photoverse_tpu_torch.utils import trace
 
 __all__ = ["UNetConfig", "UNet2DCondition", "timestep_embedding"]
 
@@ -267,7 +273,10 @@ class DualCrossAttention(nn.Module):
     """attn2: text cross-attention + identity cross-attention; eval fusion
     (sum) or, in train mode, stochastic fusion from `fusion_u`; with
     `ip_mask` (B, S) text + MASK_FUSION_SCALE x identity x mask. Returns
-    (out, v_ip_norm (B, H, K))."""
+    (out, v_ip_norm (B, H, K)). A no-grad eval call on the card without a
+    mask takes `dual_cross_attention`'s kernel when it serves the sizes
+    (`takes_kernel`); every other call runs the einsums, and on the card
+    counts `route.cross_attn_einsum`."""
 
     def __init__(self, ch: int, heads: int, cfg: UNetConfig, tp: Optional[TPShard] = None):
         super().__init__()
@@ -303,10 +312,15 @@ class DualCrossAttention(nn.Module):
         if ctx_kv is None:
             ctx_kv = self.context_kv(text_ctx, id_ctx, train, generator)
         k, v, k_ip, v_ip = (t.to(x.dtype) for t in ctx_kv)
-        if ip_mask is not None:
+        kernel = takes_kernel(q, k.shape[1], k_ip.shape[1], train=train, masked=ip_mask is not None)
+        if q.is_cuda and not kernel:
+            trace.count("route.cross_attn_einsum")
+        if kernel:
+            fused, v_ip_norm = dual_cross_attention(q, k, v, k_ip, v_ip), identity_value_norm(v_ip)
+        elif ip_mask is not None:
             text_out, id_out = sdpa(q, k, v), sdpa(q, k_ip, v_ip)
             fused = text_out + MASK_FUSION_SCALE * (id_out * ip_mask.to(text_out.dtype)[:, :, None, None])
-            v_ip_norm = v_ip.float().square().sum(dim=-1).sqrt().transpose(1, 2)
+            v_ip_norm = identity_value_norm(v_ip)
         else:
             fused, v_ip_norm = dual_context_attention(q, k, v, k_ip, v_ip, train=train, fusion_u=fusion_u)
         return self.to_out[0](fused.reshape(B, S, -1)), v_ip_norm

@@ -63,6 +63,9 @@ SIGNATURES = {
     # x, add or null, weight, bias, out, work, N, HW, C, G, chunks, eps,
     # x_bf16, w_bf16, silu, stream
     "pv_group_norm_nhwc": [P] * 6 + [I] * 5 + [F] + [I] * 3 + [P],
+    # q, k, v, k_ip, v_ip, out, B, S, H, D, St, K, strides (b, s, h) of q,
+    # k, v, k_ip, v_ip, stream
+    "pv_dual_cross_attn": [P] * 6 + [I] * 6 + [L] * 15 + [P],
 }
 # const char* pv_error_string(int code)
 ERROR_STRING = "pv_error_string"

@@ -11,7 +11,7 @@ from typing import Optional, Tuple
 
 import torch
 
-__all__ = ["sdpa", "dual_context_attention", "fuse_outputs"]
+__all__ = ["sdpa", "dual_context_attention", "fuse_outputs", "identity_value_norm"]
 
 
 def sdpa(
@@ -65,6 +65,12 @@ def fuse_outputs(
     return torch.where(u > rule2, scale * id_out, out)
 
 
+def identity_value_norm(v_id: torch.Tensor) -> torch.Tensor:
+    """||v_id||_2 over the head dim, (B, K, H, D) -> (B, H, K) f32: the
+    identity-value norm the visual regularizer reads."""
+    return v_id.float().square().sum(dim=-1).sqrt().transpose(1, 2)
+
+
 def dual_context_attention(
     q: torch.Tensor,  # (B, Sq, H, D)
     k_text: torch.Tensor,  # (B, St, H, D)
@@ -80,12 +86,11 @@ def dual_context_attention(
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Returns (fused (B, Sq, H, D), v_ip_norm (B, H, K)).
 
-    v_ip_norm is ||v_id||_2 over the head dim, the identity-value norm the
-    visual regularizer reads.
+    v_ip_norm is `identity_value_norm(v_id)`.
     """
     text_out = sdpa(q, k_text, v_text)
     id_out = sdpa(q, k_id, v_id)
-    v_ip_norm = v_id.float().square().sum(dim=-1).sqrt().transpose(1, 2)
+    v_ip_norm = identity_value_norm(v_id)
     fused = fuse_outputs(
         text_out, id_out, train=train, fusion_u=fusion_u, scale=scale,
         rule1=rule1, rule2=rule2,

@@ -25,7 +25,10 @@ innermost span the same thread had open when it started, entered with
 growth since `enable()`.
 
 Counters are always on (a locked Counter increment, cheaper than a recorded
-span): the kernel wrappers count each launch as `launch.<kernel>`.
+span): the kernel wrappers count each launch as `launch.<kernel>`, and the
+UNet's cross-attention counts each call on the card that kept the einsums
+as `route.cross_attn_einsum` (beside `launch.dual_cross_attn`, the share of
+those calls that took the kernel).
 `since()` and `counting()` give their growth.
 """
 

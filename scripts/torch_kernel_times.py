@@ -1,6 +1,6 @@
 """Times and checks the port's wgmma kernels on one H100.
 
-    python3 scripts/torch_kernel_times.py [flash] [bwd] [stream] [fused] [--quick] [--earlier DIR]
+    python3 scripts/torch_kernel_times.py [flash] [bwd] [stream] [fused] [dual_cross] [--quick] [--earlier DIR]
 
 For `flash_sdpa` (head dims 40, 64 and 80): error, CUDA-event, device and host
 time at small, ragged and main-path shapes, beside one
@@ -8,7 +8,11 @@ time at small, ragged and main-path shapes, beside one
 for `flash_bwd` (errors of dq, dk, dv over their limits, the library time
 by autograd through such a call). `stream`: the same for
 `flash_sdpa_stream` and the d=512 `flash_fwd_lse`. For `fused_cross_ff`:
-the same at K = 1 and 5. `--earlier DIR` also times these kernels of
+the same at K = 1 and 5. For `dual_cross_attention`: its error and the
+einsum route's against the plain version in f32, and the time of the
+kernel, of the einsum route (the plain version on the same bf16 inputs, what
+the UNet ran before the kernel) and of the plain version in f32, at the
+UNets' shapes. `--earlier DIR` also times these kernels of
 another checkout of this repository (an earlier commit unpacked with
 `git archive`) at the main-path shapes, on the same card in the same run,
 twice: before and after this tree's families. Each family runs in a
@@ -34,7 +38,7 @@ _spec = importlib.util.spec_from_file_location("chip_smoke_here", os.path.join(R
 cs = importlib.util.module_from_spec(_spec)
 _spec.loader.exec_module(cs)
 
-FLASH_RTOL, LSE_ATOL, FUSED_ATOL = cs.FLASH_RTOL, cs.LSE_ATOL, cs.FUSED_ATOL
+FLASH_RTOL, LSE_ATOL, FUSED_ATOL, DUAL_RTOL = cs.FLASH_RTOL, cs.LSE_ATOL, cs.FUSED_ATOL, cs.DUAL_RTOL
 time_ms = cs._time_ms
 
 
@@ -177,6 +181,44 @@ def child_fused(quick: bool):
             log(f"  plain version: {time_ms(lambda: fb.reference_cross_ff(h, bundle, H), 5):.4f} ms")
 
 
+def child_dual_cross(quick: bool):
+    import torch
+
+    from photoverse_tpu_torch.ops import bounds
+    from photoverse_tpu_torch.ops import dual_cross_attn as dca
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # SDXL's two levels at UNet batch 8, SD-1.5's 32^2, 16^2 and 8^2 levels at
+    # batch 16, its 64^2 level at the recipe's batch 8; 77 text rows and the
+    # serving path's one identity row; then ragged contexts and rows
+    main = [(8, 4096, 10, 64, 77, 1), (8, 1024, 20, 64, 77, 1), (16, 1024, 8, 80, 77, 1),
+            (16, 256, 8, 160, 77, 1), (16, 64, 8, 160, 77, 1), (8, 4096, 8, 40, 77, 1)]
+    small = [(2, 300, 3, 64, 33, 5), (1, 100, 2, 160, 80, 8), (2, 17, 4, 40, 1, 1)]
+    for B, S, H, d, St, K in main + small:
+        ts = tuple(torch.randn(B, n, H, d, generator=gen, device=dev).bfloat16() for n in (S, St, St, K, K))
+        f32 = tuple(t.float() for t in ts)
+        want = dca.dual_cross_attention_plain(*f32)
+        got = dca.dual_cross_attention(*ts)
+        torch.cuda.synchronize()
+        err = (got.float() - want).abs().max().item()
+        route_err = (dca.dual_cross_attention_plain(*ts).float() - want).abs().max().item()
+        tol = DUAL_RTOL * sum(t.abs().max().item() for t in (f32[2], f32[4], want))
+        bound = bounds.bound_ms(*bounds.flash_fwd(B, S, St + K, H, d))
+        line = (f"dual_cross {(B, S, H, d, St, K)}: bound {bound:.4f} ms (by "
+                f"{bounds.bound_by(*bounds.flash_fwd(B, S, St + K, H, d))}); err {err:.4g} (tol {tol:.4g}), einsum "
+                f"route's {route_err:.4g}; repeat identical {torch.equal(dca.dual_cross_attention(*ts), got)}")
+        log(line + ("" if err <= tol else " FAIL"))
+        if (B, S, H, d, St, K) in main and not quick:
+            for label, fn in (("kernel", lambda: dca.dual_cross_attention(*ts)),
+                              ("einsum route", lambda: dca.dual_cross_attention_plain(*ts))):
+                dms = cs._device_ms(fn, 20)
+                share = "" if dms is None else f", {100 * bound / dms:.1f}% of the bound"
+                log(f"  {label}: {time_ms(fn, 20):.4f} ms, device {cs._fmt_ms(dms)} ms{share}, host "
+                    f"{host_us(fn, 100):.1f} us")
+            log(f"  plain version in f32: {time_ms(lambda: dca.dual_cross_attention_plain(*f32), 5):.4f} ms")
+
+
 def _bwd_case(gen, B, S, H, d, dev):
     import torch
 
@@ -317,7 +359,7 @@ def main():
 
         torch.backends.cuda.matmul.allow_tf32 = False
         {"flash": child_flash, "bwd": child_bwd, "stream": child_stream, "fused": child_fused,
-         "earlier": child_earlier}[
+         "dual_cross": child_dual_cross, "earlier": child_earlier}[
             args[args.index("--child") + 1]](quick)
         return 0
     import torch
@@ -337,13 +379,13 @@ def main():
     for line in out.splitlines():  # per kernel: template arguments, spills, registers; warnings
         if "Compiling entry" in line:
             keep = "Z" in line
-            name = line[max(line.find("flash"), line.find("fused")):][:48]
+            name = line[max(line.find("flash"), line.find("fused"), line.find("dual")):][:48]
         elif keep and ("registers" in line or "spill" in line):
             log(f"  {name}: {line.strip()}")
         elif "error" in line or "arning" in line:
             log(f"  {line.strip()}")
     rc = 0
-    names = ("flash", "bwd", "stream", "fused")
+    names = ("flash", "bwd", "stream", "fused", "dual_cross")
     families = [(a, None) for a in args if a in names] or [(a, None) for a in names]
     if "--earlier" in args:  # the other checkout first and last: the card's pace can move within a call
         other = ("earlier", args[args.index("--earlier") + 1])

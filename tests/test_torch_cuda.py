@@ -16,12 +16,17 @@ Functions are held to gradients by
 autograd through the plain f32 forward at the same limit. The channels-last
 GroupNorm and its plain version both compute in f32 and round once, so
 they may differ by one bf16 spacing (taken at 1/16 for smaller values).
+The dual-context cross-attention is held to the f32 plain version by the
+einsum route's own error on the same bf16 inputs: both round the
+probabilities to bf16, and the kernel rounds its f32 sum once where the
+einsum route rounds three times.
 """
 
 import pytest
 import torch
 
 from photoverse_tpu_torch.ops import _build
+from photoverse_tpu_torch.ops import dual_cross_attn as dca
 from photoverse_tpu_torch.ops import flash_sdpa as fs
 from photoverse_tpu_torch.ops import fused_block as fb
 from photoverse_tpu_torch.ops import group_norm as gn
@@ -469,6 +474,7 @@ def _plain_kernels():
     with mock.patch.object(layers, "group_norm_nhwc", gn.group_norm_nhwc_plain), \
             mock.patch.object(unet, "flash_sdpa", fs.flash_sdpa_plain), \
             mock.patch.object(unet, "fused_cross_ff", fb.reference_cross_ff), \
+            mock.patch.object(unet, "dual_cross_attention", dca.dual_cross_attention_plain), \
             mock.patch.object(vae, "flash_sdpa_stream", fs.flash_sdpa_plain):
         yield
 
@@ -496,7 +502,8 @@ def test_masked_unet_evaluation_kernels_against_plain(gen):
             want, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles, ip_mask=mask)
     n = _norms(models.unet)
     assert counts == {"flash_sdpa": 4, "group_norm_nhwc": n}  # S=1024 down and twice up, S=256 mid
-    assert free_counts == {"flash_sdpa": 8, "fused_cross_ff": 3, "group_norm_nhwc": 2 * n}
+    # without the mask the C=640 mid block's cross-attention takes its kernel
+    assert free_counts == {"flash_sdpa": 8, "fused_cross_ff": 3, "dual_cross_attn": 1, "group_norm_nhwc": 2 * n}
     assert torch.isfinite(got).all()
     scale = want.abs().max().item()
     print(f"masked eval kernels vs plain {(got - want).abs().max().item():.6g} of {scale:.6g}, "
@@ -519,7 +526,8 @@ def test_euler_a_run_kernels_against_plain(gen):
         want = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(4), **kw)
     other = run_inference(models, solver, example, torch.Generator(device="cuda").manual_seed(5), **kw)
     norms = 3 * _norms(models.unet) + _norms(models.vae.decoder)
-    assert counts == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1, "group_norm_nhwc": norms}
+    assert counts == {"flash_sdpa": 12, "fused_cross_ff": 9, "dual_cross_attn": 3, "flash_sdpa_stream": 1,
+                      "group_norm_nhwc": norms}
     assert got.shape == (2, 64, 64, 3) and torch.isfinite(got).all()
     diff, seeds = (got - want).abs().max().item(), (got - other).abs().max().item()
     print(f"euler_a kernels vs plain {diff:.6g}, seed 4 vs seed 5 {seeds:.6g}")
@@ -562,7 +570,8 @@ def test_service_worker_thread_launches_kernels_and_reuses_the_build(gen, tmp_pa
             t.join()
     assert out[3]["batch_rows"] == out[7]["batch_rows"] == 2
     norms = 3 * _norms(models.unet) + _norms(models.vae.decoder)
-    assert launches == {"flash_sdpa": 12, "fused_cross_ff": 9, "flash_sdpa_stream": 1, "group_norm_nhwc": norms}
+    assert launches == {"flash_sdpa": 12, "fused_cross_ff": 9, "dual_cross_attn": 3, "flash_sdpa_stream": 1,
+                        "group_norm_nhwc": norms}
     assert out[3]["images"].shape == (1, 64, 64, 3) and out[3]["images"].dtype == np.uint8
     assert not svc.thread_errors and svc.drain(30)
 
@@ -691,3 +700,133 @@ def test_no_grad_unet_at_batch_16_keeps_channels_last_throughout(gen):
     assert not [k for k in kernels if "nchwToNhwc" in k or "nhwcToNchw" in k]
     assert not [k for k in kernels if "RowwiseMoments" in k]
     assert torch.isfinite(eps).all()
+
+
+# ---------------------------------------------------------------------------
+# the dual-context cross-attention kernel
+
+
+def _dual_case(gen, B, S, H, d, St, K):
+    return (_r(gen, B, S, H, d), _r(gen, B, St, H, d), _r(gen, B, St, H, d), _r(gen, B, K, H, d),
+            _r(gen, B, K, H, d))
+
+
+def _dual_errors(ts):
+    """(kernel output, its max abs error, the einsum route's) against the
+    plain version in f32 on the same bf16 inputs; one launch a call."""
+    want = dca.dual_cross_attention_plain(*(t.float() for t in ts))
+    route = dca.dual_cross_attention_plain(*ts)
+    with trace.counting("launch.") as launches:
+        got = dca.dual_cross_attention(*ts)
+    torch.cuda.synchronize()
+    assert launches == {"dual_cross_attn": 1}
+    assert got.shape == ts[0].shape and got.dtype == torch.bfloat16
+    return got, (got.float() - want).abs().max().item(), (route.float() - want).abs().max().item()
+
+
+@pytest.mark.parametrize("B,S,H,d", [
+    (8, 4096, 10, 64), (8, 1024, 20, 64),                   # SDXL at UNet batch 8
+    (16, 1024, 8, 80), (16, 256, 8, 160), (16, 64, 8, 160),  # SD-1.5 serving at batch 16, the mid block last
+    (8, 4096, 8, 40),                                        # training's face prefix
+])
+def test_dual_cross_kernel_at_the_unets_shapes(gen, B, S, H, d):
+    # 77 text and 4 identity rows, unit-scale inputs: no larger error than
+    # the einsum route's, repeat calls bit-identical, and faster than it
+    ts = _dual_case(gen, B, S, H, d, 77, 4)
+    got, err, route_err = _dual_errors(ts)
+    ours = _device_ms(lambda: dca.dual_cross_attention(*ts))
+    route = _device_ms(lambda: dca.dual_cross_attention_plain(*ts))
+    print(f"dual cross {(B, S, H, d)}: max err {err:.3g} (einsum route {route_err:.3g}), "
+          f"{ours:.4f} ms against the einsum route's {route:.4f} ms")
+    assert err <= route_err
+    assert torch.equal(dca.dual_cross_attention(*ts), got)
+    assert ours < route
+
+
+@pytest.mark.parametrize("d", [40, 64, 80, 160])
+@pytest.mark.parametrize("St,K", [(1, 1), (7, 3), (16, 8), (33, 5), (64, 2), (79, 7), (80, 8)])
+def test_dual_cross_kernel_ragged_contexts(gen, d, St, K):
+    # 1-80 text and 1-8 identity rows, and 2100 query rows: no multiple of
+    # the 128-row block or of a warp's 16
+    ts = _dual_case(gen, 2, 2100, 3, d, St, K)
+    got, err, route_err = _dual_errors(ts)
+    assert err <= route_err
+    assert torch.equal(dca.dual_cross_attention(*ts), got)
+
+
+def test_dual_cross_kernel_reads_strided_inputs_and_refuses_what_it_cannot(gen):
+    # the context as a slice of a wider buffer and q as a view of the
+    # projection's rows: read in place; an odd offset, another dtype or
+    # shape raises
+    B, S, H, d = 2, 200, 4, 64
+    q = _r(gen, B, S, 2, H, d)[:, :, 1]
+    wide = _r(gen, B, 77, H, 2 * d)
+    k, v = wide[..., :d], wide[..., d:]
+    ki, vi = _r(gen, B, 4, H, d), _r(gen, B, 4, H, d)
+    got, err, route_err = _dual_errors((q, k, v, ki, vi))
+    assert err <= route_err
+    odd = _r(gen, B, 77, H, d + 1)[..., 1:]  # 2-byte offset
+    with pytest.raises(ValueError, match="aligned"):
+        dca.dual_cross_attention(q, odd, v, ki, vi)
+    with pytest.raises(TypeError, match="bf16"):
+        dca.dual_cross_attention(q, k.half(), v, ki, vi)
+    with pytest.raises(ValueError, match="shape"):
+        dca.dual_cross_attention(q, k, v[:, :70], ki, vi)
+    with pytest.raises(ValueError, match="built for"):
+        dca.dual_cross_attention(q, k, v, _r(gen, B, 9, H, d), _r(gen, B, 9, H, d))
+    q.requires_grad_()
+    with pytest.raises(RuntimeError, match="no backward"):
+        dca.dual_cross_attention(q, k, v, ki, vi)
+
+
+def test_sdxl_tiny_unet_call_takes_the_kernel_in_every_block(gen):
+    # the tiny SDXL bundle at head dim 64 (one head a level): its 11
+    # transformer blocks are all unfused, each one launch a UNet call and no
+    # einsum route; the output agrees with the einsum route's
+    import importlib.util
+    import os
+
+    spec = importlib.util.spec_from_file_location(
+        "sdxl_tiny", os.path.join(os.path.dirname(os.path.abspath(__file__)), "sdxl_tiny.py"))
+    sdxl_tiny = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(sdxl_tiny)
+    models, _ = sdxl_tiny.bundle(device="cuda", dtype=torch.bfloat16, level_heads=(1, 1, 1), num_heads=1)
+    unet = models.unet
+    B, L = 2, sdxl_tiny.LATENT
+    args = (torch.randn(B, L, L, 4, generator=gen, device="cuda"), torch.full((B,), 500.0, device="cuda"),
+            _r(gen, B, 77, 64), _r(gen, B, 1, 64))
+    added = (_r(gen, B, 16), torch.full((B, 6), 32.0, device="cuda"))
+    with torch.no_grad():
+        with trace.counting("launch.") as launches, trace.counting("route.") as routes:
+            got, norms = unet(*args, added_cond=added)
+            torch.cuda.synchronize()
+        with _plain_kernels():
+            want, want_norms = unet(*args, added_cond=added)
+    assert launches.get("dual_cross_attn") == 11 and routes == {}
+    assert torch.equal(norms, want_norms)
+    assert (got - want).abs().max().item() <= 2**-5 * want.abs().max().item()
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_sd15_tiny_unet_call_takes_the_kernel_in_every_unfused_block(gen, fused):
+    # SD-1.5 widths 320 and 640 with 8 heads (d = 40 and 80): with fused
+    # blocks the three C=320 blocks take the fused tail and the C=640 mid
+    # block this kernel; without, all four blocks take this kernel
+    from photoverse_tpu_torch.engine import inference
+
+    models = _narrow_bundle()
+    B = 2
+    lat = torch.randn(B, 32, 32, 4, generator=gen, device="cuda")
+    text, ident = _r(gen, B, 16, 64), _r(gen, B, 1, 64)
+    t = torch.tensor([500.5, 20.0], device="cuda")
+    kv = inference.precompute_ctx_kv(models, text, ident)
+    bundles = inference.precompute_fused_bundles(models, kv) if fused else None
+    with torch.no_grad():
+        with trace.counting("launch.") as launches, trace.counting("route.") as routes:
+            got, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles)
+            torch.cuda.synchronize()
+        with _plain_kernels():
+            want, _ = models.unet(lat, t, text, ident, ctx_kv=kv, fused_bundles=bundles)
+    assert launches.get("dual_cross_attn") == (1 if fused else 4) and routes == {}
+    assert launches.get("fused_cross_ff", 0) == (3 if fused else 0)
+    assert (got - want).abs().max().item() <= 2**-5 * want.abs().max().item()

@@ -17,6 +17,7 @@ from photoverse_tpu.ops import fused_block as jfused
 from photoverse_tpu.ops.injection import inject_concept_embeddings as jinject
 from photoverse_tpu_torch.ops import _build
 from photoverse_tpu_torch.ops import attention as tattn
+from photoverse_tpu_torch.ops import dual_cross_attn as tdca
 from photoverse_tpu_torch.ops import flash_sdpa as tflash
 from photoverse_tpu_torch.ops import fused_block as tfused
 from photoverse_tpu_torch.models.layers import GroupNorm
@@ -457,3 +458,107 @@ def test_group_norm_nhwc_plain_is_the_layers_arithmetic(f32, cpg, add, silu):
     assert _bf16_steps(got, exact) <= 0.51
     assert _bf16_steps(got, want) <= (2 if silu else 1)
     assert torch.equal(unfused, want)
+
+
+# ---------------------------------------------------------------------------
+# the dual-context cross-attention kernel's wrapper and its route
+
+
+def _fake(device="cuda", dtype=torch.bfloat16, d=64):
+    """What `takes_kernel` reads of q, for a device this machine lacks."""
+    import types
+
+    return types.SimpleNamespace(device=torch.device(device), dtype=dtype, shape=(2, 16, 4, d))
+
+
+@pytest.mark.parametrize("device,dtype,grad,train,masked,d,St,K,takes", [
+    ("cuda", torch.bfloat16, False, False, False, 64, 77, 1, True),    # SDXL serving
+    ("cuda", torch.bfloat16, False, False, False, 80, 77, 1, True),    # SD-1.5 serving, 32^2
+    ("cuda", torch.bfloat16, False, False, False, 160, 77, 1, True),   # 16^2 and the 8^2 mid block
+    ("cuda", torch.bfloat16, False, False, False, 40, 77, 5, True),    # training's no-grad face prefix
+    ("cuda", torch.bfloat16, False, False, False, 64, 80, 8, True),    # the largest contexts
+    ("cuda", torch.bfloat16, True, False, False, 64, 77, 1, False),    # the grad path
+    ("cuda", torch.bfloat16, False, True, False, 64, 77, 1, False),    # train-mode fusion
+    ("cuda", torch.bfloat16, False, False, True, 64, 77, 1, False),    # the identity mask
+    ("cpu", torch.bfloat16, False, False, False, 64, 77, 1, False),    # the CPU
+    ("cuda", torch.float32, False, False, False, 64, 77, 1, False),    # f32 activations
+    ("cuda", torch.bfloat16, False, False, False, 8, 77, 1, False),    # a head dim the kernel lacks
+    ("cuda", torch.bfloat16, False, False, False, 64, 81, 1, False),   # too many text rows
+    ("cuda", torch.bfloat16, False, False, False, 64, 77, 9, False),   # too many identity rows
+])
+def test_cross_attention_takes_the_kernel_by_the_route_rule(device, dtype, grad, train, masked, d, St, K, takes):
+    with torch.set_grad_enabled(grad):
+        assert tdca.takes_kernel(_fake(device, dtype, d), St, K, train=train, masked=masked) is takes
+
+
+@pytest.mark.parametrize("sizes,served", [
+    ((64, 77, 1), True), ((40, 1, 1), True), ((80, 80, 8), True), ((160, 77, 5), True),
+    ((32, 77, 1), False), ((128, 77, 1), False), ((64, 0, 1), False), ((64, 81, 1), False),
+    ((64, 77, 0), False), ((64, 77, 9), False),
+])
+def test_dual_cross_kernel_serves_is_the_rule_check_kernel_shape_raises_by(sizes, served):
+    assert tdca.kernel_serves(*sizes) is served
+    if served:
+        tdca.check_kernel_shape(*sizes)
+    else:
+        with pytest.raises(ValueError, match="built for"):
+            tdca.check_kernel_shape(*sizes)
+
+
+def _dual_inputs(seed, B=2, S=24, H=2, d=40, St=7, K=3, dtype=torch.bfloat16):
+    g = torch.Generator().manual_seed(seed)
+    return tuple(torch.randn(B, n, H, d, generator=g).to(dtype) for n in (S, St, St, K, K))
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_dual_cross_attention_plain_is_the_einsum_routes_eval_output(dtype):
+    ts = _dual_inputs(3, dtype=dtype)
+    got = tdca.dual_cross_attention(*ts)
+    want, _ = tattn.dual_context_attention(*ts)
+    assert got.dtype == dtype and torch.equal(got, want)
+    assert torch.equal(tdca.dual_cross_attention_plain(*ts), want)
+
+
+def test_cross_attention_kernel_route_gives_the_einsum_routes_output(monkeypatch):
+    # the route forced on the CPU, where the wrapper runs its plain version:
+    # the block's output and its v_ip norms equal the einsum route's
+    from photoverse_tpu_torch.models import unet
+    from photoverse_tpu_torch.models.unet import DualCrossAttention, UNetConfig
+
+    cfg = UNetConfig(cross_attention_dim=24)
+    torch.manual_seed(0)
+    attn = DualCrossAttention(32, 4, cfg).to(torch.bfloat16).eval()
+    x, text, ident = torch.randn(2, 16, 32).bfloat16(), torch.randn(2, 7, 24).bfloat16(), torch.randn(2, 3, 24).bfloat16()
+    with torch.no_grad():
+        want, want_n = attn(x, text, ident)
+        taken = []
+        monkeypatch.setattr(unet, "takes_kernel", lambda *a, **k: taken.append(a[1:]) or True)
+        got, got_n = attn(x, text, ident)
+    assert taken == [(7, 3)]
+    assert torch.equal(got, want) and torch.equal(got_n, want_n) and got_n.shape == (2, 4, 3)
+
+
+def test_dual_cross_attention_refuses_grad_and_other_devices():
+    q, k, v, ki, vi = _dual_inputs(4)
+    with pytest.raises(RuntimeError, match="no backward"):
+        tdca.dual_cross_attention(q.requires_grad_(), k, v, ki, vi)
+    with torch.no_grad():
+        assert tdca.dual_cross_attention(q, k, v, ki, vi).shape == q.shape
+    meta = torch.zeros(1, 16, 2, 64, device="meta")
+    with pytest.raises(ValueError, match="CPU or CUDA"):
+        tdca.dual_cross_attention(meta, meta, meta, meta, meta)
+
+
+def test_cross_attention_counts_nothing_on_the_cpu():
+    from photoverse_tpu_torch.models.unet import DualCrossAttention, UNetConfig
+
+    attn = DualCrossAttention(32, 4, UNetConfig(cross_attention_dim=24)).to(torch.bfloat16).eval()
+    x, text, ident = torch.randn(2, 16, 32).bfloat16(), torch.randn(2, 7, 24).bfloat16(), torch.randn(2, 3, 24).bfloat16()
+    with trace.counting("launch.") as launches, trace.counting("route.") as routes:
+        with torch.no_grad():
+            attn(x, text, ident)
+            attn(x, text, ident, ip_mask=torch.ones(2, 16))
+            tdca.dual_cross_attention(*_dual_inputs(5))
+        attn(x, text, ident)
+        attn(x, text, ident, train=True, fusion_u=torch.tensor(0.5))
+    assert launches == {} and routes == {}
